@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 NVIDIA card (Hopper: the kernels build for ``sm_90a``) and ``nvcc``.
@@ -8,22 +8,40 @@ Phases, one output line or more each; any failure raises and exits
 non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the ``gather_rows`` kernel from ``deeprec_tpu_torch/csrc``.
-3. kernel against its plain PyTorch version on the card, exact (a
-   gather is a copy), at the serving shapes and at edge cases; median
-   times of both over 20 calls.
-4. state at reference shapes: the headline WDL (two coalesced tables,
-   129 x 4,194,305 and 65 x 524,289 float32) filled with the distinct
-   ids of 32 synthetic Criteo batches of 16,384, rows drawn as a fresh
-   insert draws them, towers from a seeded generator; saved as a full
-   checkpoint.
+2. build: the ``gather_rows`` and ``sparse_apply`` kernels from
+   ``deeprec_tpu_torch/csrc``, one ``nvcc`` each, in parallel.
+3. K1 against its plain PyTorch version on the card, exact (a gather is
+   a copy), at the serving shapes and at edge cases; median times of
+   both over 20 calls, and of ``torch.nn.functional.embedding`` on the
+   clamped slots (the library call for a plain gather).
+4. serving state at reference shapes: the headline WDL (two coalesced
+   tables, 129 x 4,194,305 and 65 x 524,289 float32) filled with the
+   distinct ids of 32 synthetic Criteo batches of 16,384, rows drawn as
+   a fresh insert draws them, towers from a seeded generator; saved as a
+   full checkpoint.
 5. in-process serving: ``ServingModel.full_update`` restores it and
-   scores a 16,384 batch through the kernel (launch count reset just
-   before, read just after), against the same state scored with the
-   plain gather, and against a CPU restore of the checkpoint on a small
-   input.
+   scores a 16,384 batch through K1 (launch count reset just before,
+   read just after), against the same state scored with the plain
+   gather, and against a CPU restore of the checkpoint on a small input.
 6. the worker process: spawned, queried over HTTP, its answers checked
    against phase 5's scores, shut down by closing its stdin.
+7. (a) K2 (sparse Adagrad) and K3 (lazy Adam) against their plain
+   versions at the headline shapes, with dropped slots, filtered rows
+   and fresh rows, and at edge cases; median times over 20 calls.
+8. (b) the headline training step through ``deeprec_tpu_torch.bench``:
+   30 warm-up and 30 measured steps at B = 16,384 (samples/s, per-step
+   ``n_overflow``, finite losses), with K1 and K2 launch counts reset
+   just before and read just after. Then one step's row gradients,
+   taken once, are applied by K2 to one copy of the tables and by the
+   plain version to another, compared, and both timed.
+9. (d) that trained state saved as a full checkpoint and restored with
+   the port's ``CheckpointManager``: equal eval scores, and the
+   checkpoint holds ``slot/['accum']`` rows and ``dense_opt`` leaves.
+10. (c) the same path with ``sparse_opt="adam"`` for a few steps, with
+   the same checks for K3.
+11. (e) the sizes of ``__graft_entry__._build`` built with the port
+   alone, three steps on the card and on the CPU from the same weights;
+   the losses must agree.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +49,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -57,6 +76,18 @@ CPU_LOGIT_ATOL = 2e-3
 # 1.422e-4 in each, at 512 rows).
 PROB_ATOL = 1.5e-3
 SMALL = 256  # rows of the CPU reference check
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak device-memory rate
+# Kernel vs plain optimizer apply on the same inputs: the kernels are
+# built with --fmad=false and repeat the plain version's operations, so
+# the slot arrays (accumulator, moments) must be equal; the table rows
+# may differ in the last bits where rsqrtf and PyTorch's rsqrt differ.
+APPLY_RTOL, APPLY_ATOL = 1e-6, 1e-7
+ADAM_STEPS = (2, 3)  # warm-up and measured steps of phase (c)
+# Card vs CPU loss of the small float32 config over three steps: GEMM
+# sums and the atomics of the rows' backward run in another order.
+# About 17x the reading on an H100 (max abs diff 5.96e-8, both
+# optimizers).
+SMALL_LOSS_ATOL = 1e-6
 
 
 def log(msg: str):
@@ -95,12 +126,22 @@ def phase_device() -> str:
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from deeprec_tpu_torch.ops.kernels import build
+    names = ("gather_rows", "sparse_apply")
     t0 = time.perf_counter()
-    build.load_library("gather_rows")
-    log(f"phase 2 build: gather_rows ready in "
-        f"{time.perf_counter() - t0:.3f} s (nvcc "
-        f"{build.build_seconds['gather_rows']:.3f} s)")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(build.load_library, n) for n in names]:
+            f.result()
+    log(f"phase 2 build: {', '.join(names)} ready in "
+        f"{time.perf_counter() - t0:.3f} s (nvcc " + ", ".join(
+            f"{n} {build.build_seconds[n]:.3f} s" for n in names) + ")")
+
+
+def bound_ms(nbytes: float) -> float:
+    """Least time to move ``nbytes`` at the card's peak memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def phase_kernel() -> dict:
@@ -150,14 +191,22 @@ def phase_kernel() -> dict:
             lambda: gather.gather_rows(values, slots, admitted, bank))
         plain_sel = median_ms(lambda: gather.gather_rows_reference(
             values, slots, admitted, bank))
+        clamped = torch.clamp(slots.long(), 0, C1 - 1)
+        lib = median_ms(lambda: torch.nn.functional.embedding(clamped,
+                                                              values))
         gbs = 2 * n * D * 4 / (ms_sel * 1e-3) / 1e9
+        # Each output row read once and written once, plus the slot
+        # (4 B) and admitted flag (1 B) of every row.
+        bound = bound_ms(2 * n * D * 4 + 5 * n)
         log(f"phase 3 kernel: table [{C1}, {D}] f32, n={n}: gather "
-            f"{ms:.4f} ms (plain {plain:.4f} ms); with default select "
-            f"{ms_sel:.4f} ms (plain {plain_sel:.4f} ms), "
-            f"{gbs:.1f} GB/s moved by the kernel")
+            f"{ms:.4f} ms (plain {plain:.4f} ms, F.embedding {lib:.4f} "
+            f"ms); with default select {ms_sel:.4f} ms (plain "
+            f"{plain_sel:.4f} ms), {gbs:.1f} GB/s moved by the kernel, "
+            f"bound {bound:.4f} ms")
         if record is None:
-            record = {"ms": ms_sel, "plain_ms": plain_sel}
-        del values, slots, admitted, bank
+            record = {"ms": ms_sel, "plain_ms": plain_sel,
+                      "bound_ms": bound, "library_ms": lib}
+        del values, slots, admitted, bank, clamped
     torch.cuda.empty_cache()
     # Edge cases: narrow and 128-wide rows, bf16, ragged and empty n,
     # a multi-row default bank.
@@ -355,23 +404,329 @@ def phase_worker(raw, logits, ckpt_dir: str):
             proc.wait()
 
 
+def _apply(kind, values, slots, grads, upd, is_new, tables, args, plain):
+    """One K2 (``kind`` "adagrad") or K3 ("adam") call, or its plain
+    version, on ``values`` and the slot ``tables``."""
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    if kind == "adagrad":
+        fn = (sa.adagrad_apply_rows_reference if plain
+              else sa.adagrad_apply_rows)
+        lr, init_acc = args
+        return fn(values, tables[0], slots, grads, lr, update=upd,
+                  is_new=is_new, init_acc=init_acc)
+    fn = sa.adam_apply_rows_reference if plain else sa.adam_apply_rows
+    return fn(values, tables[0], tables[1], slots, grads, *args, update=upd,
+              is_new=is_new)
+
+
+def _apply_bytes(kind, D, upd, slots) -> int:
+    """Bytes an apply must move: per element of an updated row 20
+    (Adagrad: read w, acc, g; write w, acc) or 28 (Adam: w, m, v, g
+    read; w, m, v written), plus slot (4 B) and two flags per row."""
+    per = 20 if kind == "adagrad" else 28
+    return per * D * int(upd.sum()) + 6 * slots.numel()
+
+
+def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
+                  label: str, time_it: bool) -> dict:
+    """Kernel vs plain apply on copies of the same inputs: slot arrays
+    equal, rows within APPLY_RTOL/APPLY_ATOL, row C untouched. With
+    ``time_it``, median times of both over REPS calls (each applies
+    again, in place, on its own copy) and the bound."""
+    C = values.shape[0] - 1
+    kv, pv = values.clone(), values.clone()
+    kt = [t.clone() for t in tables]
+    pt = [t.clone() for t in tables]
+    _apply(kind, kv, slots, grads, upd, is_new, kt, args, plain=False)
+    _apply(kind, pv, slots, grads, upd, is_new, pt, args, plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(kt, pt):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{kind} {label}: slot arrays differ from "
+                                 f"the plain version, max abs err "
+                                 f"{float((a - b).abs().max())}")
+    err = float((kv - pv).abs().max()) if kv.numel() else 0.0
+    torch.testing.assert_close(kv, pv, rtol=APPLY_RTOL, atol=APPLY_ATOL)
+    if not torch.equal(kv[C], values[C]):
+        raise AssertionError(f"{kind} {label}: the kernel wrote row C")
+    rec = {"max_abs_err": err}
+    if time_it:
+        D = values.shape[1]
+        mask = upd & (slots >= 0) & (slots < C)
+        nbytes = _apply_bytes(kind, D, mask, slots)
+        rec["ms"] = median_ms(lambda: _apply(kind, kv, slots, grads, upd,
+                                             is_new, kt, args, plain=False))
+        rec["plain_ms"] = median_ms(lambda: _apply(
+            kind, pv, slots, grads, upd, is_new, pt, args, plain=True))
+        rec["bound_ms"] = bound_ms(nbytes)
+        rec["updated"] = int(mask.sum())
+        log(f"phase {label}: {kind} [{C + 1}, {D}], n={slots.numel()}, "
+            f"{rec['updated']} rows updated: kernel {rec['ms']:.4f} ms "
+            f"({nbytes / rec['ms'] / 1e6:.1f} GB/s), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; "
+            f"max abs err {err}")
+    del kv, pv, kt, pt
+    return rec
+
+
+def phase_apply_kernels() -> float:
+    """(a) K2 and K3 against their plain versions at the headline shapes
+    and at edge cases; returns the largest row error seen."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    max_err = 0.0
+
+    def inputs(C1, D, n, drop=0.01, upd_share=0.9, new_share=0.2):
+        C = C1 - 1
+        slots = torch.randperm(C, generator=gen, device=dev)[:n].to(
+            torch.int32)
+        k = int(n * drop)
+        if k:
+            slots[:k] = C                       # overflow / padding rows
+            slots[k:2 * k] = C + 17             # above C
+            slots[2 * k:3 * k] = -5             # negative
+        grads = torch.randn(n, D, generator=gen, device=dev)
+        upd = torch.rand(n, generator=gen, device=dev) < upd_share
+        is_new = torch.rand(n, generator=gen, device=dev) < new_share
+        return slots, grads, upd, is_new
+
+    for kind in ("adagrad", "adam"):
+        for C1, D, n in ((4194305, 129, 131073), (524289, 65, 67265)):
+            values = torch.randn(C1, D, generator=gen, device=dev)
+            if kind == "adagrad":
+                tables = [torch.rand(C1, D, generator=gen, device=dev) + 0.1]
+                args = (0.05, 0.1)
+            else:
+                tables = [torch.randn(C1, D, generator=gen, device=dev) * 0.1,
+                          torch.rand(C1, D, generator=gen, device=dev) * 0.1]
+                args = (torch.tensor([0.01], device=dev), 0.9, 0.999, 1e-8)
+            slots, grads, upd, is_new = inputs(C1, D, n)
+            rec = compare_apply(kind, values, tables, slots, grads, upd,
+                                is_new, args, "7 (a)", time_it=True)
+            max_err = max(max_err, rec["max_abs_err"])
+            # Edge cases on the same table: narrow, ragged, empty, every
+            # row dropped, no masks.
+            for D2, n2 in ((1, 4099), (17, 77777), (128, 4099)):
+                v2 = torch.randn(100003, D2, generator=gen, device=dev)
+                t2 = [torch.rand(100003, D2, generator=gen, device=dev) + 0.1
+                      for _ in tables]
+                s2, g2, u2, i2 = inputs(100003, D2, n2, drop=0.05,
+                                        upd_share=0.5, new_share=0.5)
+                rec = compare_apply(kind, v2, t2, s2, g2, u2, i2, args,
+                                    "7 (a) edge", time_it=False)
+                rec2 = compare_apply(kind, v2, t2, s2, g2, None, None, args,
+                                     "7 (a) edge", time_it=False)
+                max_err = max(max_err, rec["max_abs_err"],
+                              rec2["max_abs_err"])
+            empty = torch.zeros(0, dtype=torch.int32, device=dev)
+            compare_apply(kind, values, tables, empty, grads[:0], None, None,
+                          args, "7 (a) empty", time_it=False)
+            dropped = torch.full((n,), C1 - 1, dtype=torch.int32, device=dev)
+            compare_apply(kind, values, tables, dropped, grads, upd, is_new,
+                          args, "7 (a) all dropped", time_it=False)
+            del values, tables, slots, grads, upd, is_new
+            torch.cuda.empty_cache()
+    log(f"phase 7 (a): K2 and K3 match their plain versions on every case "
+        f"(slot arrays equal, max abs row err {max_err})")
+    return max_err
+
+
+def _step_grads(tr, batch):
+    """One step's lookup and row gradients, without the applies."""
+    ts, group = tr.ts, tr.group
+    _, gl = group.lookup_train(ts.ev, batch, ts.step)
+    rows = {t: lk.rows.detach().requires_grad_() for t, lk in gl.lks.items()}
+    params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
+    out = tr.apply_fn(params, group.combine(gl, rows), batch)
+    per_ex = tr.loss_fn(out, batch)
+    grads = torch.autograd.grad(per_ex.sum() / per_ex.shape[0],
+                                list(rows.values()))
+    return gl, dict(zip(rows, grads))
+
+
+def phase_train(kind: str, label: str, warmup: int, steps: int):
+    """(b)/(c) the headline training path with ``kind`` sparse optimizer:
+    launch counts over the timed run, then kernel vs plain applies from
+    one step's gradients. Returns (trainer, kernel records, launches)."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+
+    t0 = time.perf_counter()
+    tr = bench.build_wdl(reference_shapes=True, device="cuda",
+                         sparse_opt=kind)
+    build_s = time.perf_counter() - t0
+    kname = f"{kind}_apply_rows"
+    gather.launches = 0                       # the main path starts here
+    sa.launches[kname] = 0
+    out = bench.bench_device(tr, warmup=warmup, steps=steps)
+    launches = {"gather_rows": gather.launches,
+                kname: sa.launches[kname]}    # the main path ends here
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the training path did not launch every "
+                             f"kernel: {launches}")
+    log(f"phase {label}: {kind} headline WDL built in {build_s:.3f} s; "
+        f"{warmup} + {steps} steps of B={bench.BATCH}: "
+        f"{out['value']:.1f} samples/s ({out['step_ms']:.3f} ms/step); "
+        f"losses {[round(x, 6) for x in out['losses']]}; n_overflow per "
+        f"step {out['n_overflow']}; launches {launches}")
+
+    # The same gradients through the kernel and through the plain
+    # version, on copies of the trained tables.
+    gl, grads = _step_grads(tr, tr.next_batch())
+    recs = []
+    for tname, g in grads.items():
+        cfg = tr.group.tables[tname]
+        lk = gl.lks[tname]
+        upd = lk.admitted & (lk.slots < cfg.capacity)
+        sl = tr.ts.slots[tname]
+        if kind == "adagrad":
+            tables = [sl["accum"]]
+            args = (tr.sparse_opt.learning_rate,
+                    tr.sparse_opt.initial_accumulator_value)
+        else:
+            o = tr.sparse_opt
+            alpha = (o.learning_rate * torch.sqrt(1 - sl["beta2_power"])
+                     / (1 - sl["beta1_power"])).reshape(1)
+            tables = [sl["m"], sl["v"]]
+            args = (alpha, o.beta1, o.beta2, o.epsilon)
+        recs.append(compare_apply(kind, tr.ts.ev[tname].values, tables,
+                                  lk.slots, g.contiguous(), upd, lk.is_new,
+                                  args, f"{label} same gradients",
+                                  time_it=True))
+    return tr, out, recs, launches
+
+
+def phase_checkpoint(tr, ckpt_dir: str):
+    """(d) save the trained state in full, restore it, and score both."""
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.train.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.train.loop import make_eval_step
+
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(ckpt_dir, tr.group)
+    path = mgr.save(tr.ts)
+    save_s = time.perf_counter() - t0
+    names = set()
+    for fn in os.listdir(path):
+        if fn.endswith(".npz"):
+            with np.load(os.path.join(path, fn)) as z:
+                names.update(z.files)
+    if ("slot/['accum']" not in names or not any(
+            n.startswith("['dense_opt']/") for n in names)):
+        raise AssertionError(f"checkpoint lacks optimizer state: "
+                             f"{sorted(names)[:20]}")
+    t0 = time.perf_counter()
+    template = tr.ts.replace(ev={}, slots={t: {k: torch.zeros_like(v)
+                                               for k, v in sl.items()}
+                                           for t, sl in tr.ts.slots.items()})
+    restored = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    batch = tr.next_batch()
+    eval_step = make_eval_step(tr.group, tr.apply_fn)
+    want = eval_step(tr.ts, batch)
+    got = eval_step(restored, batch)
+    if restored.step != tr.ts.step or not torch.equal(got, want):
+        raise AssertionError(f"restored state scores differ: max abs "
+                             f"{float((got - want).abs().max())}")
+    # Rows and accumulators, key by key: the restored tables hold each
+    # trained key at a slot of their own.
+    for tname, st in tr.ts.ev.items():
+        cfg = tr.group.tables[tname]
+        live = torch.nonzero(ht.live_mask(st.table)).reshape(-1)
+        kp = st.table.key_pair[live]
+        rs = restored.ev[tname]
+        at = ht.find(rs.table, kp[:, 0].contiguous(), kp[:, 1].contiguous(),
+                     max_probes=cfg.max_probes).long()
+        if not bool((at < cfg.capacity).all()):
+            raise AssertionError(f"{tname}: keys missing after restore")
+        for a, b in ((rs.values[at], st.values[live]),
+                     (restored.slots[tname]["accum"][at],
+                      tr.ts.slots[tname]["accum"][live])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tname}: restored rows differ")
+    for k, v in tr.ts.dense_opt["sum_of_squares"].items():
+        if not torch.equal(restored.dense_opt["sum_of_squares"][k], v):
+            raise AssertionError(f"dense_opt {k} differs after restore")
+    log(f"phase 9 (d): checkpoint of step {tr.ts.step} saved in "
+        f"{save_s:.3f} s ({sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))} "
+        f"bytes), restored in {restore_s:.3f} s; eval scores of the "
+        f"restored state equal the trained state's on {want.shape[0]} "
+        f"rows; rows, accumulators and dense Adagrad state equal key by key")
+    del restored, template
+
+
+def phase_small():
+    """(e) the __graft_entry__ sizes, three steps on the card and on the
+    CPU from the same weights and batches."""
+    from deeprec_tpu_torch import bench
+    for kind in ("adagrad", "adam"):
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            tr = bench.build_small(dev, kind)
+            ts = tr.ts
+            got = []
+            for _ in range(3):
+                ts, m = tr.step(ts, tr.next_batch())
+                got.append(float(m["loss"]))
+            losses[dev] = got
+        diff = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        if not diff <= SMALL_LOSS_ATOL:
+            raise AssertionError(f"(e) {kind}: card {losses['cuda']} vs CPU "
+                                 f"{losses['cpu']}")
+        log(f"phase 11 (e): {kind} small WDL, losses on the card "
+            f"{losses['cuda']} and on the CPU {losses['cpu']}, max abs diff "
+            f"{diff}")
+
+
+def _record(name, source, replaces, launches, err, rec):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+            "library_ms": rec.get("library_ms")}
+
+
 def main():
     kind = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
-    record = phase_kernel()
+    k1 = phase_kernel()
+    apply_err = phase_apply_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ckpt_dir:
         parts, raw = phase_state(ckpt_dir)
-        logits, launches = phase_serving(parts, raw, ckpt_dir)
+        logits, _ = phase_serving(parts, raw, ckpt_dir)
         del parts
         torch.cuda.empty_cache()
         phase_worker(raw, logits, ckpt_dir)
-    print(json.dumps({"kernels": [{
-        "name": "gather_rows", "route": "cuda",
-        "source": "deeprec_tpu_torch/csrc/gather_rows.cu",
-        "replaces": "deeprec_tpu/ops/pallas/gather.py:72",
-        "launches": launches, "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"], "plain_ms": record["plain_ms"]}]}), flush=True)
+    tr, _, k2, launches = phase_train("adagrad", "8 (b)", 30, 30)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        phase_checkpoint(tr, d)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, _, k3, adam_launches = phase_train("adam", "10 (c)", *ADAM_STEPS)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_small()
+    src = "deeprec_tpu_torch/csrc/"
+    pallas = "deeprec_tpu/ops/pallas/"
+    print(json.dumps({"kernels": [
+        _record("gather_rows", src + "gather_rows.cu", pallas + "gather.py:72",
+                launches["gather_rows"], k1["max_abs_err"], k1),
+        _record("adagrad_apply_rows", src + "sparse_apply.cu",
+                pallas + "sparse_apply.py:113",
+                launches["adagrad_apply_rows"],
+                max([apply_err] + [r["max_abs_err"] for r in k2]),
+                max(k2, key=lambda r: r["bound_ms"])),
+        _record("adam_apply_rows", src + "sparse_apply.cu",
+                pallas + "sparse_apply.py:253",
+                adam_launches["adam_apply_rows"],
+                max([apply_err] + [r["max_abs_err"] for r in k3]),
+                max(k3, key=lambda r: r["bound_ms"])),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

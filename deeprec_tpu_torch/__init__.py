@@ -5,8 +5,13 @@ here has exactly one counterpart in ``deeprec_tpu/`` and is held against
 it by the parity tests in ``tests/test_torch_*.py``. It imports
 ``torch`` and never JAX, so it runs on a machine without JAX.
 
-Covered so far: the serving path of the WDL model (hash-table probe,
-row fetch with default select through the hand-written CUDA kernel in
-``csrc/gather_rows.cu``, bag combine, towers, checkpoint restore,
-full/delta updates, HTTP scoring and the serving worker).
+Covered so far, for the headline WDL model: the serving path
+(hash-table probe, row fetch with default select through the
+hand-written CUDA kernel in ``csrc/gather_rows.cu``, bag combine,
+towers, checkpoint restore, full/delta updates, HTTP scoring and the
+serving worker) and the single-device training step (insert and
+first-occurrence dedup, the same fetch, combine, towers forward and
+backward, dense Adagrad, and the sparse Adagrad and lazy-Adam applies
+in the kernels of ``csrc/sparse_apply.cu``), with checkpoints that carry
+the optimizer state; ``bench.py`` times it.
 """

@@ -2,8 +2,8 @@
 
 Port of ``deeprec_tpu/config.py``: the same frozen dataclasses, with
 ``TableConfig.dtype`` a ``torch.dtype``. Only the options the ported
-serving path honours are carried; eviction, static buckets, adaptive
-and dynamic-dimension hot tables are not ported yet.
+serving and training paths honour are carried; eviction, static
+buckets, adaptive and dynamic-dimension hot tables are not ported yet.
 """
 
 from __future__ import annotations

@@ -4,6 +4,10 @@ Dense params: a flax params tree (nested dicts of numpy arrays) maps to
 the port's state dict; a Dense ``kernel [in, out]`` becomes
 ``weight [out, in]``. Table state: every ``EVState`` field is copied as
 it is, so the port probes the same slots and reads the same rows.
+Optimizer state: the sparse optimizers' slot trees are the same dicts
+of arrays on both sides, and optax's Adagrad state
+``(ScaleByRssState(sum_of_squares=tree), EmptyState())`` maps to the
+port's ``{"sum_of_squares": state dict}``. Everything crosses as numpy.
 """
 
 from __future__ import annotations
@@ -79,3 +83,31 @@ def ev_state_to_numpy(state: EVState) -> Dict[str, np.ndarray]:
         "default_bank": state.default_bank.cpu().numpy(),
         "bloom": state.bloom.cpu().numpy(),
     }
+
+
+def slots_from_numpy(slots: Dict[str, Dict[str, Any]],
+                     device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{table: {name: array}}`` (``TrainState.slots`` of the JAX
+    package, as numpy) -> the port's, on ``device``."""
+    return {t: {k: torch.from_numpy(np.array(v)).to(device)
+                for k, v in sl.items()} for t, sl in slots.items()}
+
+
+def slots_to_numpy(slots) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of :func:`slots_from_numpy`."""
+    return {t: {k: v.cpu().numpy() for k, v in sl.items()}
+            for t, sl in slots.items()}
+
+
+def dense_opt_from_numpy(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax Adagrad state with numpy leaves (``jax.tree.map(np.asarray,
+    ts.dense_opt)``) -> the port's ``Adagrad`` state."""
+    return {"sum_of_squares": wdl_params_from_numpy(
+        opt_state[0].sum_of_squares)}
+
+
+def dense_opt_to_numpy(dense_opt) -> Dict[str, Any]:
+    """The port's ``Adagrad`` state -> the flax-layout tree of optax's
+    ``sum_of_squares``; the JAX side wraps it as
+    ``(optax.ScaleByRssState(sum_of_squares=tree), optax.EmptyState())``."""
+    return wdl_params_to_numpy(dense_opt["sum_of_squares"])

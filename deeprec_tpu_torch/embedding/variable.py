@@ -1,20 +1,25 @@
-"""EmbeddingVariable: dynamic-capacity embedding table, inference side.
+"""EmbeddingVariable: dynamic-capacity embedding table.
 
-Port of ``deeprec_tpu/embedding/variable.py`` for the serving path:
-table state, the read-only ``lookup`` (hash find, then the row fetch
-with default select in one ``gather_rows`` kernel), and the 4-tensor
-checkpoint export/import. Training lookups and eviction are not ported
-yet.
+Port of ``deeprec_tpu/embedding/variable.py``: table state, the
+read-only ``lookup`` (hash find, then the row fetch with default select
+in one ``gather_rows`` kernel), the sort-free training lookup
+``lookup_train_occ`` (insert, first-occurrence dedup, budget compaction,
+row init, metadata, admission and the same fused fetch), and the
+4-tensor checkpoint export/import. Eviction (``shrink``,
+``delete_keys``) and the sorted CBF path (``lookup_train``) are not
+ported yet.
 
 Row arrays have ``capacity + 1`` rows; row ``capacity`` is the overflow
-sentinel, stays zero and is never written. ``import_arrays`` writes the
+sentinel, stays zero and is never written. The JAX package returns new
+arrays; here the training lookup and ``import_arrays`` write the
 state's tensors in place: a reference-shape table is gigabytes, and a
-copy per import chunk would not fit.
+copy per step or per import chunk would not fit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +41,27 @@ class EVState:
     versions: torch.Tensor      # [C+1] int32 last-touched step (-1 unset)
     default_bank: torch.Tensor  # [default_value_dim, dim]
     bloom: torch.Tensor         # [1] int32 (CBF admission is not ported)
+
+
+class LookupResult(NamedTuple):
+    slots: torch.Tensor          # [n] int32 row index (capacity: overflow)
+    rows: torch.Tensor           # [n, dim] embedding rows (defaults where needed)
+    admitted: torch.Tensor       # [n] bool: row participates in training
+    is_new: torch.Tensor         # [n] bool: initialized by this lookup
+    prev_versions: torch.Tensor  # [n] int32 last-touch step before it
+    qhi: torch.Tensor
+    qlo: torch.Tensor
+
+
+class OccLookup(NamedTuple):
+    """Result of :func:`lookup_train_occ`: unique-level lookup plus the
+    occurrence-to-unique map."""
+
+    lk: LookupResult        # arrays sized [U+1]; row U is the shared
+    #                         overflow/padding pseudo-unique, never trained
+    inverse: torch.Tensor   # [n] int64 in [0, U]
+    n_overflow: torch.Tensor  # [] int32: ids dropped by the budget plus
+    #                           ids the table could not place
 
 
 def _check_ported(cfg: cfglib.TableConfig):
@@ -92,6 +118,179 @@ def _tracking(cfg: cfglib.TableConfig) -> tuple[bool, bool]:
     return track_freq, track_version
 
 
+def _drop_idx(slots, capacity: int, keep=None):
+    """int64 scatter index: ``slots`` where ``slots < capacity`` (and
+    ``keep``), else the sentinel row ``capacity``. The JAX package
+    routes dropped entries out of bounds for a ``mode='drop'`` scatter;
+    here callers write the sentinel row's own content back to it, or
+    add zero, so it stays as it is and nothing is indexed out of
+    bounds."""
+    ok = slots < capacity
+    if keep is not None:
+        ok = ok & keep
+    return torch.where(ok, slots, capacity).to(torch.int64), ok
+
+
+def _default_sel(state: EVState, qhi, qlo):
+    """Default-bank row of each id (``id % default_value_dim``), or
+    None for a single default row. This is the JAX package's
+    ``_default_rows`` as an index: the ``gather_rows`` kernel reads the
+    bank row itself, in the same pass as the table rows."""
+    dvd = state.default_bank.shape[0]
+    return None if dvd == 1 else keylib.mod_of(qhi, qlo, dvd)
+
+
+def _init_fresh(cfg: cfglib.TableConfig, values, fresh, slots, qhi, qlo,
+                salt: int):
+    """Write initializer rows at ``slots[fresh]`` (unique). One host
+    sync: only the fresh ids are drawn, where the JAX package draws
+    rows for every id inside a ``while_loop`` gated on any being
+    fresh."""
+    idx = torch.nonzero(fresh).reshape(-1)
+    if idx.numel() == 0:
+        return
+    rows = srand.init_rows(cfg.initializer, qhi[idx], qlo[idx], cfg.dim,
+                           cfg.init_scale, salt=salt)
+    values[slots[idx].to(torch.int64)] = rows.to(values.dtype)
+
+
+def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
+                     global_step: int, salt: int = 0,
+                     budget: Optional[int] = None
+                     ) -> tuple[EVState, OccLookup]:
+    """Training lookup straight from per-occurrence ids ``[n]``.
+
+    Inserts new ids, dedups by first occurrence of each slot (a
+    scatter-min, no sort), compacts the representatives to the static
+    budget ``U`` by cumsum ranks (``budget=None``: ``U = n``, no
+    compaction), initializes fresh rows, updates freq/version metadata
+    where tracked, and fetches rows with the default select through
+    the ``gather_rows`` kernel. Ids beyond the budget read defaults,
+    get no update and are counted in ``n_overflow``.
+
+    ``state`` is updated in place and returned.
+    """
+    if isinstance(cfg.ev_option.filter_option, cfglib.CBFFilter):
+        raise ValueError("lookup_train_occ does not support CBF filters")
+    capacity = cfg.capacity
+    n = qhi.shape[0]
+    U = n if budget is None else min(budget, n)
+    dev = qhi.device
+    is_real = qhi != keylib.EMPTY_HI
+
+    _, slots, is_new = ht.find_or_insert(
+        state.table, qhi, qlo, is_real, max_probes=cfg.max_probes)
+    n_table_overflow = (is_real & (slots >= capacity)).sum(dtype=torch.int32)
+
+    # Representatives: the first occurrence of each slot. Overflow ids
+    # (slot == capacity) are each their own representative.
+    tokens = torch.arange(n, dtype=torch.int32, device=dev)
+    in_tab = slots < capacity
+    slot_d = torch.clamp(slots, max=capacity).to(torch.int64)
+    placed = is_real & in_tab
+    first = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, torch.where(placed, slot_d, capacity),
+                          torch.where(placed, tokens, n), "amin",
+                          include_self=True)
+    rep_token = torch.where(in_tab, first[slot_d], tokens)
+    rep = is_real & (rep_token == tokens)
+
+    if budget is None:
+        # U = n: every occurrence doubles as a unique row; the non-
+        # representatives carry the dropped slot and no inverse points
+        # at them.
+        inverse = torch.where(is_real, torch.where(in_tab, rep_token, tokens),
+                              n).to(torch.int64)
+
+        def pad(a, fill):
+            return torch.cat([a, torch.full((1,), fill, dtype=a.dtype,
+                                            device=dev)])
+
+        uhi = pad(qhi, keylib.EMPTY_HI)
+        ulo = pad(qlo, keylib.EMPTY_LO)
+        uslots = pad(torch.where(rep, slots, capacity), capacity)
+        u_new = pad(is_new, False)
+        n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        # Compact representatives to U: pos[t] is token t's rank among
+        # representatives. Tokens outside the budget write slot U of
+        # u_of, which is sliced off.
+        pos = torch.cumsum(rep.to(torch.int32), 0, dtype=torch.int32) - 1
+        in_budget = rep & (pos < U)
+        u_of = torch.full((U + 1,), n, dtype=torch.int32, device=dev)
+        u_of[torch.where(in_budget, pos, U).to(torch.int64)] = tokens
+        u_idx = u_of[:U]
+        upad = u_idx >= n
+        safe_u = torch.clamp(u_idx, max=n - 1).to(torch.int64)
+        prep = pos[torch.clamp(rep_token, max=n - 1).to(torch.int64)]
+        inverse = torch.where(is_real & (prep < U), prep, U).to(torch.int64)
+        n_rep = rep.sum(dtype=torch.int32)
+        n_overflow = torch.clamp(n_rep - U, min=0)
+
+        def pick(a, fill):
+            return torch.cat([torch.where(upad, fill, a[safe_u]),
+                              torch.full((1,), fill, dtype=a.dtype,
+                                         device=dev)])
+
+        uhi = pick(qhi, keylib.EMPTY_HI)
+        ulo = pick(qlo, keylib.EMPTY_LO)
+        uslots = pick(slots, capacity)
+        u_new = pick(is_new, False)
+
+    track_freq, track_version = _tracking(cfg)
+    if track_freq:
+        # Occurrence level, so ids inserted beyond the budget start
+        # their count clean too. Fresh slots are unique, the reset
+        # writes 0 there and row C's own value to row C.
+        widx, _ = _drop_idx(slots, capacity, is_new)
+        state.freqs.index_put_((widx,), torch.where(
+            is_new, 0, state.freqs[capacity]).to(torch.int32))
+        oidx, ok = _drop_idx(slots, capacity, is_real)
+        state.freqs.index_add_(0, oidx, ok.to(torch.int32))
+
+    usafe = torch.clamp(uslots, max=capacity).to(torch.int64)
+    u_in = uslots < capacity
+    if track_version:
+        # Row init at the first trained touch (version < 0): covers ids
+        # inserted beyond the budget and reused slots alike.
+        raw_prev = state.versions[usafe]
+        u_new = u_in & ((raw_prev < 0) | u_new)
+        _init_fresh(cfg, state.values, u_new, uslots, uhi, ulo, salt)
+        prev_versions = torch.where(u_new, global_step, raw_prev)
+        widx, ok = _drop_idx(uslots, capacity)
+        state.versions.index_put_((widx,), torch.where(
+            ok, global_step, state.versions[capacity]).to(torch.int32))
+    else:
+        # LightHeader mode: rows initialize at insert time, at the
+        # occurrence level so beyond-budget inserts initialize too.
+        _init_fresh(cfg, state.values, is_new, slots, qhi, qlo, salt)
+        u_new = u_in & u_new
+        prev_versions = torch.full(uslots.shape, global_step,
+                                   dtype=torch.int32, device=dev)
+    prev_versions = prev_versions.to(torch.int32)
+
+    f = cfg.ev_option.filter_option
+    freq_rows = None
+    if (isinstance(f, cfglib.CounterFilter) and f.filter_freq > 0) \
+            or cfg.block_num > 1:
+        freq_rows = state.freqs[usafe]
+    if isinstance(f, cfglib.CounterFilter) and f.filter_freq > 0:
+        admitted = u_in & (freq_rows >= f.filter_freq)
+    else:
+        admitted = u_in
+
+    rows = gather.gather_rows(state.values, uslots, admitted,
+                              state.default_bank,
+                              _default_sel(state, uhi, ulo))
+    if cfg.block_num > 1:
+        rows = _dyn_dim_mask(cfg, rows, freq_rows)
+    return state, OccLookup(
+        lk=LookupResult(slots=uslots, rows=rows, admitted=admitted,
+                        is_new=u_new, prev_versions=prev_versions, qhi=uhi,
+                        qlo=ulo),
+        inverse=inverse, n_overflow=n_overflow + n_table_overflow)
+
+
 def _dyn_dim_mask(cfg: cfglib.TableConfig, rows, freqs_rows):
     """Dynamic-dimension EV: zero the blocks a key's frequency has not
     yet unlocked."""
@@ -124,10 +323,9 @@ def lookup(cfg: cfglib.TableConfig, state: EVState, qhi, qlo) -> torch.Tensor:
         # Version-tracked tables fill a row's values at its first
         # trained touch; versions < 0 marks a row not yet filled.
         admitted = admitted & (state.versions[safe] >= 0)
-    dvd = state.default_bank.shape[0]
-    sel = None if dvd == 1 else keylib.mod_of(qhi, qlo, dvd)
     rows = gather.gather_rows(state.values, slots, admitted,
-                              state.default_bank, sel)
+                              state.default_bank,
+                              _default_sel(state, qhi, qlo))
     if cfg.block_num > 1:
         rows = _dyn_dim_mask(cfg, rows, state.freqs[safe])
     return rows
@@ -153,14 +351,22 @@ def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarr
 
 
 def import_arrays(cfg: cfglib.TableConfig, state: EVState,
-                  arrays: dict[str, np.ndarray], chunk: int = 8192) -> EVState:
+                  arrays: dict[str, np.ndarray], chunk: int = 8192,
+                  extra_targets: Optional[dict[str, torch.Tensor]] = None):
     """Bulk-insert rows (keys, values, freqs, versions) into ``state``,
     in place, ``chunk`` keys at a time. Rows whose probe overflows the
-    table are dropped, as in the JAX package."""
+    table are dropped, as in the JAX package.
+
+    ``extra_targets``: further row-aligned ``[C+1, ...]`` tensors (an
+    optimizer's slot rows) written at the same slots, in place, from
+    ``arrays["slot/<name>"]``. Returns ``state``, or ``(state,
+    extra_targets)`` when they are given."""
     ids = np.asarray(arrays["keys"], np.int64)
     vals = np.asarray(arrays["values"])
     freqs = np.asarray(arrays["freqs"]).astype(np.int32)
     versions = np.asarray(arrays["versions"]).astype(np.int32)
+    extras = {name: np.asarray(arrays[f"slot/{name}"])
+              for name in (extra_targets or {})}
     dev = state.values.device
     capacity = cfg.capacity
     for start in range(0, ids.shape[0], chunk):
@@ -177,8 +383,16 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
         slots = slots[: end - start].to(torch.int64)
         ok = slots < capacity
         w = slots[ok]
-        state.values[w] = torch.from_numpy(vals[start:end]).to(
-            dev)[ok].to(state.values.dtype)
-        state.freqs[w] = torch.from_numpy(freqs[start:end]).to(dev)[ok]
-        state.versions[w] = torch.from_numpy(versions[start:end]).to(dev)[ok]
+
+        def put(dst, src):
+            dst[w] = torch.from_numpy(src[start:end]).to(dev)[ok].to(
+                dst.dtype)
+
+        put(state.values, vals)
+        put(state.freqs, freqs)
+        put(state.versions, versions)
+        for name, src in extras.items():
+            put(extra_targets[name], src)
+    if extra_targets is not None:
+        return state, extra_targets
     return state

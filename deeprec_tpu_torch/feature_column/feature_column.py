@@ -1,10 +1,12 @@
 """Feature columns and the embedding group.
 
-Port of ``deeprec_tpu/feature_column/feature_column.py`` for the
-serving path: columns, unsharded ``EmbeddingGroup`` construction with
-coalescing (members of one table signature share a physical table, told
-apart by XOR salts on both id halves), id transforms, host-side batch
-packing and state creation.
+Port of ``deeprec_tpu/feature_column/feature_column.py``: columns,
+unsharded ``EmbeddingGroup`` construction with coalescing (members of
+one table signature share a physical table, told apart by XOR salts on
+both id halves), id transforms, host-side batch packing, state and
+optimizer-slot creation, and the single-device training side: the
+per-table training lookup with its unique budget, the fused combine
+and the sparse optimizer apply.
 
 Batch convention:
   * numeric column ``name`` -> float32 [B] or [B, k]
@@ -12,7 +14,7 @@ Batch convention:
     padded with the EMPTY sentinel id.
 
 Not ported yet: sharded placement, static-bucket, adaptive, sequence,
-weighted and dyn-dim hot columns, ``CompactIds``, training lookups.
+weighted and dyn-dim hot columns, ``CompactIds``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from deeprec_tpu_torch import config as cfglib
+from deeprec_tpu_torch.embedding import lookup as lkup
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.utils import keys as keylib
 
@@ -92,12 +95,24 @@ class EmbeddingColumn:
         default_factory=cfglib.EmbeddingVariableOption)
     shared_name: Optional[str] = None
     max_probes: int = 64
+    # Declared id-space size (mod-bucket columns: the hash bucket
+    # count). Bounds the distinct ids one step can route to the table,
+    # min(num_buckets, B*L) per column, which shrinks every unique-level
+    # row op to that budget (``variable.lookup_train_occ``). None keeps
+    # the exact budget U = n.
+    num_buckets: Optional[int] = None
+    # Static hash-bucket column (no hash table): not ported yet.
+    static_bucket: bool = False
 
     @property
     def table_name(self) -> str:
         return self.shared_name or self.name
 
     def table_config(self) -> cfglib.TableConfig:
+        if self.static_bucket:
+            raise NotImplementedError(
+                f"column {self.name}: static hash-bucket tables are not "
+                "ported")
         scale = (self.init_scale if self.init_scale is not None
                  else self.dim ** -0.5)
         return cfglib.TableConfig(
@@ -105,6 +120,24 @@ class EmbeddingColumn:
             initializer=self.initializer, init_scale=scale,
             ev_option=self.ev_option, combiner=self.combiner,
             max_probes=self.max_probes)
+
+
+class ColumnLookup(NamedTuple):
+    """Differentiation-side info for one column's lookup."""
+
+    column: Any
+    table_name: str
+    inverse: torch.Tensor   # [B, L]
+    mask: torch.Tensor      # [B, L]
+
+
+class GroupLookup(NamedTuple):
+    """All lookups of one step."""
+
+    lks: Dict[str, ev.LookupResult]      # per table (rows: the grad inputs)
+    columns: Dict[str, ColumnLookup]     # per column
+    # Distinct ids dropped by each table's unique budget this step.
+    budget_overflow: Dict[str, torch.Tensor]
 
 
 class EmbeddingGroup:
@@ -257,6 +290,92 @@ class EmbeddingGroup:
     def create_state(self, device) -> Dict[str, ev.EVState]:
         return {n: ev.create(c, device, salt=self.salts[n])
                 for n, c in self.tables.items()}
+
+    def init_optimizer(self, opt, device) -> Dict[str, Any]:
+        """Sparse-optimizer slot state of every table on ``device``."""
+        return {n: opt.init(c, device) for n, c in self.tables.items()}
+
+    # -- training ---------------------------------------------------------
+    def lookup_train(self, states, batch, global_step: int):
+        """Returns ``(states, GroupLookup)``; the tables of ``states``
+        are updated in place (inserts, row init, metadata)."""
+        lks: Dict[str, ev.LookupResult] = {}
+        cols: Dict[str, ColumnLookup] = {}
+        budget_overflow: Dict[str, torch.Tensor] = {}
+        for tname, tcols in self._columns_by_table().items():
+            cfg = self.tables[tname]
+            ids_hi, ids_lo, widths = self._packed_view(batch, tname, tcols)
+            budget = self._unique_budget(tcols, widths, ids_hi.shape)
+            states[tname], bl = lkup.bag_lookup_train(
+                cfg, states[tname], ids_hi, ids_lo, global_step,
+                salt=self.salts[tname], unique_budget=budget)
+            lks[tname] = bl.lk
+            budget_overflow[tname] = bl.n_overflow
+            off = 0
+            for c, w in zip(tcols, widths):
+                cols[c.name] = ColumnLookup(
+                    column=c, table_name=tname,
+                    inverse=bl.inverse[:, off:off + w],
+                    mask=bl.mask[:, off:off + w])
+                off += w
+        return states, GroupLookup(lks=lks, columns=cols,
+                                   budget_overflow=budget_overflow)
+
+    def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+        """``rows[table]`` -> per-column bag embeddings [B, dim],
+        differentiable in ``rows``. One per-occurrence gather per table
+        (one backward scatter-add per table, not one per column)."""
+        out = {}
+        by_tbl: Dict[str, list] = {}
+        for cname, cl in gl.columns.items():
+            by_tbl.setdefault(cl.table_name, []).append((cname, cl))
+        for tname, items in by_tbl.items():
+            r = rows[tname]
+            inv = torch.cat([cl.inverse for _, cl in items], dim=1)
+            msk = torch.cat([cl.mask for _, cl in items], dim=1)
+            occ = r[inv] * msk[..., None].to(r.dtype)
+            off = 0
+            for cname, cl in items:
+                w = cl.inverse.shape[1]
+                out[cname] = lkup.combine_from_occ(
+                    occ[:, off:off + w], msk[:, off:off + w],
+                    cl.column.combiner)
+                off += w
+        return out
+
+    def apply_gradients(self, opt, slot_states, states, gl: GroupLookup,
+                        grad_rows: Dict[str, torch.Tensor], global_step: int,
+                        lr=None):
+        """Sparse-apply each table's row gradients, in place. Returns
+        ``(slot_states, states)``."""
+        for tname, g in grad_rows.items():
+            st = states[tname]
+            slot_states[tname], st.values = opt.apply(
+                self.tables[tname], slot_states[tname], st.values,
+                gl.lks[tname], g, global_step, lr=lr)
+        return slot_states, states
+
+    @staticmethod
+    def _unique_budget(tcols, widths, ids_shape) -> Optional[int]:
+        """Static bound on the distinct ids one step can route into a
+        table: the sum over member columns of min(num_buckets, B*L_col),
+        aligned up to 64. None (U = n) unless every member declares
+        ``num_buckets`` and the bound is below n."""
+        B = ids_shape[0]
+        total = 0
+        for c, w in zip(tcols, widths):
+            if c.num_buckets is None:
+                return None
+            total += min(c.num_buckets, B * w)
+        n = B * (ids_shape[1] if len(ids_shape) > 1 else 1)
+        total = -(-total // 64) * 64
+        return total if total < n else None
+
+    @staticmethod
+    def overflow_total(gl: GroupLookup) -> torch.Tensor:
+        """Ids dropped this step by the tables' unique budgets (0 in
+        exact configurations): they read defaults and get no update."""
+        return sum(gl.budget_overflow.values())
 
     def numeric_features(self, batch):
         """Stack numeric columns -> [B, sum(shapes)] float32."""

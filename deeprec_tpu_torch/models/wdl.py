@@ -37,10 +37,12 @@ def criteo_columns(
     """Criteo-Kaggle column set: I1..I13 numeric, C1..C26 categorical,
     each with a deep embedding and a wide (dim-1) weight.
 
-    ``reference_shapes``: per-column dims (64/128) and capacities sized
-    from the reference bucket counts; ``capacity`` is then a per-column
-    ceiling. ``wide_in_deep``: the wide weight rides as channel 0 of
-    the deep table (dim+1) instead of a separate dim-1 table.
+    ``reference_shapes``: per-column dims (64/128), capacities sized
+    from the reference bucket counts (``capacity`` is then a per-column
+    ceiling), and those counts declared as ``num_buckets``, which bounds
+    each step's unique ids. ``wide_in_deep``: the wide weight rides as
+    channel 0 of the deep table (dim+1) instead of a separate dim-1
+    table.
     """
     ev_option = ev_option or cfglib.EmbeddingVariableOption()
     cols = [NumericColumn(f"I{i}") for i in range(1, NUM_INT + 1)]
@@ -52,18 +54,20 @@ def criteo_columns(
                 buckets, ceiling=capacity,
                 headroom=2.2 if buckets <= (1 << 16) else 1.3)
         else:
-            dim, cap = embedding_dim, capacity
+            dim, cap, buckets = embedding_dim, capacity, None
         if wide_in_deep:
             cols.append(EmbeddingColumn(
                 name=f"C{i}", dim=dim + 1, capacity=cap,
-                combiner=combiner, ev_option=ev_option))
+                combiner=combiner, ev_option=ev_option,
+                num_buckets=buckets))
             continue
         cols.append(EmbeddingColumn(
             name=f"C{i}", dim=dim, capacity=cap,
-            combiner=combiner, ev_option=ev_option))
+            combiner=combiner, ev_option=ev_option, num_buckets=buckets))
         cols.append(EmbeddingColumn(
             name=f"C{i}_wide", dim=1, capacity=cap, combiner="sum",
-            initializer="zeros", ev_option=ev_option))
+            initializer="zeros", ev_option=ev_option,
+            num_buckets=buckets))
     return cols
 
 

@@ -5,8 +5,9 @@ it builds with ``nvcc`` alone (no PyTorch headers: seconds, not
 minutes) and binds with ``ctypes``. The library goes to
 ``build/kernels/`` at the repository root, named by a hash of the
 source and flags; a file lock serializes processes that build the same
-kernel at once. Nothing is built at import: only a wrapper's first
-launch calls :func:`load_library`.
+kernel at once, and different kernels build in parallel. Nothing is
+built at import: only a wrapper's first launch calls
+:func:`load_library`.
 """
 
 from __future__ import annotations
@@ -26,8 +27,13 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Flags of one kernel on top of NVCC_FLAGS. The optimizer applies keep
+# every multiply and add separately rounded, as their plain PyTorch
+# versions do, so the two can be compared for equality.
+KERNEL_FLAGS = {"sparse_apply": ("--fmad=false",)}
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc per kernel by this process (0.0: cache hit).
 build_seconds: dict[str, float] = {}
@@ -44,14 +50,18 @@ def _nvcc() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu``."""
+    """Build (once) and load ``csrc/<name>.cu``. Safe to call from
+    several threads: each kernel has its own lock."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _loaded:
             return _loaded[name]
+        flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
         src = os.path.join(CSRC_DIR, f"{name}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                f.read() + " ".join(flags).encode()).hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
         so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
         with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lk:
@@ -61,7 +71,7 @@ def load_library(name: str) -> ctypes.CDLL:
                 if not os.path.exists(so):
                     tmp = f"{so}.{os.getpid()}.tmp"
                     proc = subprocess.run(
-                        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                        [_nvcc(), *flags, "-o", tmp, src],
                         capture_output=True, text=True)
                     if proc.returncode != 0:
                         raise RuntimeError(

@@ -45,7 +45,8 @@ def build(config: dict) -> dict:
                     dtype=_DTYPES[config.get("dtype", "bfloat16")],
                     device=device)
     init_dense(model, torch.Generator().manual_seed(0))
-    ts = trainlib.create_train_state(group, model.state_dict(), device)
+    ts = trainlib.create_train_state(group, model.state_dict(),
+                                       device=device)
 
     def parse_request(req: dict) -> dict:
         inst = req["instances"]

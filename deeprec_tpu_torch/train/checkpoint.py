@@ -2,16 +2,22 @@
 
 Port of ``CheckpointManager`` from ``deeprec_tpu/train/checkpoint.py``.
 A checkpoint is a directory ``full-<step>`` or ``incr-<step>`` holding
-``meta.json``, ``dense.npz`` (dense leaves keyed by JAX tree-path
-strings such as ``['params']/['deep']/['dense_0']/['kernel']``) and one
-``table-<name>-s<shard>.npz`` per table shard with the 4-tensor EV
-format (keys/values/freqs/versions). The JAX package and the port read
-each other's checkpoints.
+``meta.json``, ``dense.npz`` and one ``table-<name>-s<shard>.npz`` per
+table shard. ``dense.npz`` keys its leaves by JAX tree-path strings:
+``['params']/['deep']/['dense_0']/['kernel']`` for the params and
+``['dense_opt']/[0]/.sum_of_squares/['deep']/['dense_0']/['kernel']``
+for the dense Adagrad state (optax's ``(ScaleByRssState, EmptyState)``).
+A table file holds the 4-tensor EV format (keys/values/freqs/versions)
+plus the sparse optimizer's state: its row-aligned slot arrays as
+``slot/['accum']`` (or ``slot/['m']``, ``slot/['v']``), one row per key,
+and its other leaves as ``scalar/['beta1_power']`` and the like. The
+JAX package and the port read each other's checkpoints, optimizer state
+included.
 
-Restore reads the dense params and the table rows. Sparse-optimizer
-rows (``slot/*``), scalars and ``dense_opt`` leaves are read and
-ignored: training is not ported yet. Non-empty ``tombstones`` (eviction
-replay) and multi-tier spill files raise ``NotImplementedError``.
+Restore fills what the template state carries: a template without
+optimizer state (serving) skips the ``slot/*``, ``scalar/*`` and
+``dense_opt`` leaves. Non-empty ``tombstones`` (eviction replay) and
+multi-tier spill files raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import shutil
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from deeprec_tpu_torch.convert import (wdl_params_from_numpy,
                                        wdl_params_to_numpy)
@@ -33,6 +40,8 @@ from deeprec_tpu_torch.feature_column.feature_column import EmbeddingGroup
 from deeprec_tpu_torch.train.loop import TrainState
 
 _PATH_PART = re.compile(r"^\['(.+)'\]$")
+_PARAMS = "['params']"
+_DENSE_OPT = "['dense_opt']/[0]/.sum_of_squares"
 
 
 def _flatten_params(tree, prefix="['params']") -> Dict[str, np.ndarray]:
@@ -47,30 +56,65 @@ def _flatten_params(tree, prefix="['params']") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _params_tree(flat: Dict[str, np.ndarray]):
-    """The ``params`` subtree of a flat dense dict, as nested dicts."""
+def _subtree(flat: Dict[str, np.ndarray], prefix: str):
+    """The subtree of a flat dense dict under ``prefix``, as nested
+    dicts."""
     tree: Dict = {}
     for key, arr in flat.items():
-        parts = [_PATH_PART.match(p) for p in key.split("/")]
-        if not all(parts) or parts[0].group(1) != "params":
-            continue  # dense_opt leaves: not used by the port
+        if not key.startswith(prefix + "/"):
+            continue
+        parts = [_PATH_PART.match(p) for p in key[len(prefix) + 1:].split("/")]
+        if not all(parts):
+            raise KeyError(f"unexpected dense leaf {key}")
         node = tree
-        names = [m.group(1) for m in parts[1:]]
+        names = [m.group(1) for m in parts]
         for p in names[:-1]:
             node = node.setdefault(p, {})
         node[names[-1]] = arr
     return tree
 
 
-def _export_table(cfg, state: ev.EVState,
+def _dense_leaves(ts: TrainState) -> Dict[str, np.ndarray]:
+    flat = _flatten_params(wdl_params_to_numpy(ts.params), _PARAMS)
+    if ts.dense_opt:
+        flat.update(_flatten_params(
+            wdl_params_to_numpy(ts.dense_opt["sum_of_squares"]), _DENSE_OPT))
+    return flat
+
+
+def _dense_tree(flat, prefix, like: Dict[str, torch.Tensor], name: str):
+    """State dict of the leaves under ``prefix``, on the devices and in
+    the types of ``like``."""
+    loaded = wdl_params_from_numpy(_subtree(flat, prefix))
+    if set(loaded) != set(like):
+        raise KeyError(f"{name}: dense leaves {sorted(loaded)} under "
+                       f"{prefix} do not match the model's {sorted(like)}")
+    return {k: loaded[k].to(v.device, v.dtype) for k, v in like.items()}
+
+
+def _row_aligned(cfg, slots: Dict[str, torch.Tensor]):
+    """The slot arrays with one row per table row."""
+    return {k: v for k, v in slots.items()
+            if v.dim() >= 1 and v.shape[0] == cfg.capacity + 1}
+
+
+def _export_table(cfg, state: ev.EVState, slots: Dict[str, torch.Tensor],
                   min_version: Optional[int]) -> Dict[str, np.ndarray]:
-    """Live rows (all, or touched since ``min_version`` where the table
-    records versions; otherwise a delta is a full dump, as in the JAX
-    package)."""
+    """Live rows with their slot rows (all, or touched since
+    ``min_version`` where the table records versions; otherwise a delta
+    is a full dump, as in the JAX package), and the scalar slots."""
     out = ev.export_arrays(cfg, state)
+    rows = _row_aligned(cfg, slots)
+    if rows:
+        idx = torch.nonzero(ht.live_mask(state.table)).reshape(-1)
+        for k, v in rows.items():
+            out[f"slot/['{k}']"] = v[idx].cpu().numpy()
     if min_version is not None and ev._tracking(cfg)[1]:
         keep = out["versions"] >= min_version
         out = {k: v[keep] for k, v in out.items()}
+    for k, v in slots.items():
+        if k not in rows:
+            out[f"scalar/['{k}']"] = v.cpu().numpy()
     return out
 
 
@@ -79,6 +123,16 @@ def _clone_ev(st: ev.EVState) -> ev.EVState:
         st, table=ht.HashTable(st.table.key_rows.clone()),
         values=st.values.clone(), freqs=st.freqs.clone(),
         versions=st.versions.clone())
+
+
+def _set_scalars(slots: Dict[str, torch.Tensor],
+                 scalars: Dict[str, np.ndarray]) -> None:
+    """Overwrite the template's scalar slots with the checkpoint's."""
+    for k, v in slots.items():
+        key = f"['{k}']"
+        if key in scalars:
+            slots[k] = torch.from_numpy(np.array(scalars[key])).to(
+                v.device, v.dtype)
 
 
 class CheckpointManager:
@@ -105,11 +159,11 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"{kind}-{step}")
         tmp = path + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, "dense.npz"),
-                 **_flatten_params(wdl_params_to_numpy(ts.params)))
+        np.savez(os.path.join(tmp, "dense.npz"), **_dense_leaves(ts))
         min_version = since_step if incremental else None
         for tname, cfg in self.group.tables.items():
-            arrs = _export_table(cfg, ts.ev[tname], min_version)
+            arrs = _export_table(cfg, ts.ev[tname],
+                                 ts.slots.get(tname, {}), min_version)
             if incremental:
                 # No eviction in the port: the deletion record is empty.
                 arrs["tombstones"] = np.zeros((0,), np.int64)
@@ -152,7 +206,10 @@ class CheckpointManager:
                 step: Optional[int] = None) -> TrainState:
         """The newest full checkpoint at or before ``step`` plus newer
         incremental ones up to ``step``, into fresh tables on the
-        device of ``ts_template``'s params."""
+        device of ``ts_template``'s params, and into copies of the
+        template's optimizer slots (slot rows of keys the checkpoint
+        does not hold keep the template's values, as in the JAX
+        package)."""
         fulls = self._steps("full")
         if step is not None:
             fulls = [s for s in fulls if s <= step]
@@ -180,30 +237,38 @@ class CheckpointManager:
             raise NotImplementedError(
                 f"{name}: multi-tier spill rows ({spills[0]}) are not "
                 "ported")
-        params = ts.params
+        params, dense_opt = ts.params, ts.dense_opt
         dense_path = os.path.join(path, "dense.npz")
         if os.path.exists(dense_path):
             with np.load(dense_path, allow_pickle=False) as z:
-                loaded = wdl_params_from_numpy(_params_tree(dict(z)))
-            if set(loaded) != set(ts.params):
-                raise KeyError(
-                    f"{name}: dense params {sorted(loaded)} do not match "
-                    f"the model's {sorted(ts.params)}")
-            params = {k: loaded[k].to(v.device, v.dtype)
-                      for k, v in ts.params.items()}
+                flat = dict(z)
+            params = _dense_tree(flat, _PARAMS, ts.params, name)
+            if ts.dense_opt:
+                dense_opt = {"sum_of_squares": _dense_tree(
+                    flat, _DENSE_OPT, ts.dense_opt["sum_of_squares"], name)}
         new_ev = dict(ts.ev) if full else {t: _clone_ev(s)
                                            for t, s in ts.ev.items()}
+        new_slots = {t: {k: v.clone() for k, v in sl.items()}
+                     for t, sl in ts.slots.items()}
         for tname, cfg in self.group.tables.items():
             n_saved = meta.get("table_shards", {}).get(tname,
                                                        meta["num_shards"])
+            slots = new_slots.get(tname, {})
+            rows = {f"['{k}']": v for k, v in _row_aligned(cfg, slots).items()}
+            wanted = ("keys", "values", "freqs", "versions",
+                      *(f"slot/{k}" for k in rows))
             merged: Dict[str, list] = {}
+            scalars: Dict[str, np.ndarray] = {}
             for si in range(n_saved):
                 fn = os.path.join(path, f"table-{tname}-s{si}.npz")
                 if not os.path.exists(fn):
                     continue
                 with np.load(fn, allow_pickle=False) as z:
-                    for k in ("keys", "values", "freqs", "versions"):
+                    for k in wanted:
                         merged.setdefault(k, []).append(z[k])
+                    for k in z.files:
+                        if k.startswith("scalar/"):
+                            scalars[k[len("scalar/"):]] = z[k]
                     if "tombstones" in z.files and z["tombstones"].size:
                         raise NotImplementedError(
                             f"{name}: table {tname} carries eviction "
@@ -211,5 +276,8 @@ class CheckpointManager:
             if "keys" not in merged:
                 continue
             ev.import_arrays(cfg, new_ev[tname],
-                             {k: np.concatenate(v) for k, v in merged.items()})
-        return ts.replace(params=params, ev=new_ev, step=int(meta["step"]))
+                             {k: np.concatenate(v) for k, v in merged.items()},
+                             extra_targets=rows)
+            _set_scalars(slots, scalars)
+        return ts.replace(params=params, dense_opt=dense_opt, ev=new_ev,
+                          slots=new_slots, step=int(meta["step"]))

@@ -1,9 +1,10 @@
-"""Train state and the eval step.
+"""Train state, the training step and the eval step.
 
-Port of ``TrainState`` and the unsharded branch of ``make_eval_step``
-from ``deeprec_tpu/train/loop.py``. Training steps are not ported yet:
-``slots`` and ``dense_opt`` are carried so the state has the JAX
-package's fields, and stay empty.
+Port of ``TrainState``, ``create_train_state`` and the single-device
+branches of ``make_train_step`` and ``make_eval_step`` from
+``deeprec_tpu/train/loop.py`` (``mesh=None``, ``micro_batch_num=1``,
+the default ``group.combine``). Sharded steps, micro-batching and
+``make_epoch_step`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,10 +33,61 @@ class TrainState:
 
 
 def create_train_state(group: EmbeddingGroup, params: Dict[str, torch.Tensor],
-                       device) -> TrainState:
+                       dense_opt=None, sparse_opt=None,
+                       device="cuda") -> TrainState:
+    """Fresh tables on ``device``, with the optimizers' state when they
+    are given (a state that only serves needs neither)."""
+    params = {k: v.to(device) for k, v in params.items()}
     return TrainState(
-        params={k: v.to(device) for k, v in params.items()},
-        ev=group.create_state(device))
+        params=params, ev=group.create_state(device),
+        slots=(group.init_optimizer(sparse_opt, device)
+               if sparse_opt is not None else {}),
+        dense_opt=dense_opt.init(params) if dense_opt is not None else {})
+
+
+def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
+                    loss_fn: Callable, sparse_opt, dense_opt,
+                    micro_batch_num: int = 1):
+    """``(TrainState, batch) -> (TrainState, metrics)``: lookup, combine,
+    forward, loss ``sum(per_example) / B``, backward into the dense
+    params and into each table's unique rows, dense and sparse applies.
+
+    Unlike the JAX package's step, which returns new arrays, this step
+    updates the state in place: the hash tables' key rows, the table
+    rows, ``freqs`` and ``versions``, the optimizer slots and the dense
+    params all change in the tensors of the state passed in, and the
+    returned state holds the same tensors with ``step`` advanced. It runs
+    on the device the state lives on. ``metrics`` holds the loss and the
+    ids the unique budgets dropped (``n_overflow``), as 0-dim tensors on
+    that device.
+    """
+    if micro_batch_num != 1:
+        raise NotImplementedError(
+            "micro_batch_num > 1 (gradient accumulation over micro-batches) "
+            "is not ported")
+
+    def _step(ts: TrainState, batch):
+        gs = ts.step
+        states, gl = group.lookup_train(ts.ev, batch, gs)
+        rows = {t: lk.rows.detach().requires_grad_()
+                for t, lk in gl.lks.items()}
+        params = {k: v.detach().requires_grad_()
+                  for k, v in ts.params.items()}
+        out = apply_fn(params, group.combine(gl, rows), batch)
+        per_ex = loss_fn(out, batch)
+        loss = per_ex.sum() / per_ex.shape[0]
+        names, tables = list(params), list(rows)
+        grads = torch.autograd.grad(
+            loss, [params[k] for k in names] + [rows[t] for t in tables])
+        dense_opt.apply(ts.params, dict(zip(names, grads)), ts.dense_opt)
+        slots, states = group.apply_gradients(
+            sparse_opt, ts.slots, states, gl,
+            dict(zip(tables, grads[len(names):])), gs)
+        metrics = {"loss": loss.detach(),
+                   "n_overflow": group.overflow_total(gl)}
+        return ts.replace(ev=states, slots=slots, step=gs + 1), metrics
+
+    return _step
 
 
 def make_eval_step(group: EmbeddingGroup, apply_fn: Callable):

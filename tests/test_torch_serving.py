@@ -98,7 +98,7 @@ def trained(tmp_path_factory):
 def _port_serving(ckpt):
     group = tfc.EmbeddingGroup(_columns(tfc), coalesce=True)
     model = twdl.WDL(twdl.input_width(group), hidden=(16,))
-    ts = tloop.create_train_state(group, model.state_dict(), "cpu")
+    ts = tloop.create_train_state(group, model.state_dict(), device="cpu")
     return group, ServingModel(group, twdl.apply_fn(model, group), ts, ckpt)
 
 
@@ -246,7 +246,10 @@ def test_port_never_imports_jax():
         "import deeprec_tpu_torch.serving.worker, "
         "deeprec_tpu_torch.models.wdl, deeprec_tpu_torch.serving.processor, "
         "deeprec_tpu_torch.serving.wdl_entry, deeprec_tpu_torch.convert, "
-        "deeprec_tpu_torch.data.criteo, deeprec_tpu_torch.ops.kernels.gather\n"
+        "deeprec_tpu_torch.data.criteo, deeprec_tpu_torch.ops.kernels.gather, "
+        "deeprec_tpu_torch.ops.kernels.sparse_apply, deeprec_tpu_torch.bench, "
+        "deeprec_tpu_torch.train.checkpoint, deeprec_tpu_torch.train.loop, "
+        "deeprec_tpu_torch.optimizers.dense\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'deeprec_tpu')]\n"
         "assert 'jax' not in sys.modules and not bad, bad\n")

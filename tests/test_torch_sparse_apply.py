@@ -1,0 +1,218 @@
+"""Sparse optimizer applies (K2 Adagrad, K3 lazy Adam): the port's plain
+versions against the JAX package's Pallas kernels (interpret mode, as
+the JAX tests run them on the CPU) and their ``*_reference`` functions,
+the port's ``SparseAdagrad``/``SparseAdam.apply`` against the JAX
+classes on the same ``LookupResult``, and the CUDA kernels against the
+plain versions on the card.
+
+Tolerances: against JAX, rtol 1e-5, atol 1e-6 (rsqrt and sqrt from
+another math library). The Pallas kernels write their tile padding onto
+row C, so only rows below C are compared with them; the port never
+writes row C. On the card, the kernels are built with ``--fmad=false``
+and repeat the plain version's operations in its order, so the slot
+arrays (accumulator, moments) must be equal; the table rows may differ
+by the last bits where the kernel's ``rsqrtf`` and PyTorch's ``rsqrt``
+differ: rtol 1e-6, atol 1e-7.
+
+JAX is imported inside the parity tests so the ``cuda`` tests run where
+JAX is not installed:
+``python -m pytest --noconftest tests/test_torch_sparse_apply.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+ADAM = (0.9, 0.999, 1e-8)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(C, D, n, seed, drops=True):
+    """Tables [C+1, D], n unique slots in [0, C) with (when ``drops``)
+    the sentinel C and two slots above it, grads, and masks."""
+    r = np.random.default_rng(seed)
+    values = r.normal(size=(C + 1, D)).astype(np.float32)
+    acc = r.uniform(0.1, 1.0, size=(C + 1, D)).astype(np.float32)
+    m = r.normal(0, 0.1, size=(C + 1, D)).astype(np.float32)
+    v = r.uniform(0, 0.1, size=(C + 1, D)).astype(np.float32)
+    slots = r.permutation(C)[:n].astype(np.int32)
+    if drops:
+        slots[:3] = [C, C + 1, C + 17]
+    grads = r.normal(size=(n, D)).astype(np.float32)
+    update = r.random(n) < 0.8
+    is_new = r.random(n) < 0.3
+    return dict(values=values, acc=acc, m=m, v=v, slots=slots, grads=grads,
+                update=update, is_new=is_new)
+
+
+def _t(c, device="cpu"):
+    return {k: torch.from_numpy(np.array(x)).to(device) for k, x in c.items()}
+
+
+@pytest.mark.parametrize("D", [8, 65])
+def test_adagrad_plain_matches_pallas_and_reference(D):
+    import jax.numpy as jnp
+    from deeprec_tpu.ops.pallas import sparse_apply as jsa
+
+    C, n = 400, 333                     # ragged n: not a tile multiple
+    c = _case(C, D, n, D)
+    args = [jnp.asarray(c[k]) for k in ("values", "acc", "slots", "grads")]
+    pv, pa = jsa.adagrad_apply_rows(*args, 0.05, interpret=True)
+    rv, ra = jsa.adagrad_apply_rows_reference(*args, 0.05)
+    t = _t(c)
+    tv, ta = sa.adagrad_apply_rows(t["values"], t["acc"], t["slots"],
+                                   t["grads"], 0.05)
+    for got, pal, ref in ((tv, pv, rv), (ta, pa, ra)):
+        np.testing.assert_allclose(got.numpy()[:C], np.asarray(pal)[:C], **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    # Row C and every row no slot names are untouched.
+    touched = np.zeros(C + 1, bool)
+    touched[c["slots"][c["slots"] < C]] = True
+    np.testing.assert_array_equal(tv.numpy()[~touched], c["values"][~touched])
+
+
+@pytest.mark.parametrize("D", [8, 65])
+def test_adam_plain_matches_pallas_and_reference(D):
+    import jax.numpy as jnp
+    from deeprec_tpu.ops.pallas import sparse_apply as jsa
+
+    C, n = 400, 333
+    c = _case(C, D, n, 10 + D)
+    args = [jnp.asarray(c[k]) for k in ("values", "m", "v", "slots", "grads")]
+    pal = jsa.adam_apply_rows(*args, 0.01, *ADAM, interpret=True)
+    ref = jsa.adam_apply_rows_reference(*args, 0.01, *ADAM)
+    t = _t(c)
+    got = sa.adam_apply_rows(t["values"], t["m"], t["v"], t["slots"],
+                             t["grads"], 0.01, *ADAM)
+    for g, p, r in zip(got, pal, ref):
+        np.testing.assert_allclose(g.numpy()[:C], np.asarray(p)[:C], **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+    assert np.array_equal(got[0].numpy()[C], c["values"][C])
+
+
+def _lookups(c, C):
+    """The same LookupResult for both packages: rows are the table rows
+    of admitted slots (as ``lookup_train_occ`` fetches them) and noise
+    elsewhere."""
+    import jax.numpy as jnp
+    from deeprec_tpu.embedding.variable import LookupResult as JLk
+    from deeprec_tpu_torch.embedding.variable import LookupResult as TLk
+
+    n, D = c["grads"].shape
+    rows = np.where(c["update"][:, None],
+                    c["values"][np.minimum(c["slots"], C)],
+                    np.float32(7.0)).astype(np.float32)
+    f = dict(slots=c["slots"], rows=rows, admitted=c["update"],
+             is_new=c["is_new"], prev_versions=np.zeros(n, np.int32),
+             qhi=np.zeros(n, np.int32), qlo=np.arange(n, dtype=np.int32))
+    return (JLk(**{k: jnp.asarray(v) for k, v in f.items()}),
+            TLk(**{k: torch.from_numpy(np.array(v)) for k, v in f.items()}))
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [8, 65])
+def test_optimizer_apply_matches_jax(opt, D):
+    import jax
+    import jax.numpy as jnp
+    from deeprec_tpu import config as jcfg
+    from deeprec_tpu.optimizers import sparse as jsopt
+    from deeprec_tpu_torch import config as tcfg
+    from deeprec_tpu_torch import convert
+    from deeprec_tpu_torch.optimizers import sparse as tsopt
+
+    C, n = 256, 200
+    c = _case(C, D, n, 20 + D)
+    jc = jcfg.TableConfig(name="t", dim=D, capacity=C)
+    tc = tcfg.TableConfig(name="t", dim=D, capacity=C)
+    jlk, tlk = _lookups(c, C)
+    jo, to = ((jsopt.SparseAdagrad(0.05), tsopt.SparseAdagrad(0.05))
+              if opt == "adagrad" else (jsopt.SparseAdam(0.01),
+                                        tsopt.SparseAdam(0.01)))
+    jsl = jo.init(jc)
+    if opt == "adagrad":
+        jsl = {"accum": jnp.asarray(c["acc"])}
+    else:
+        jsl = {**jsl, "m": jnp.asarray(c["m"]), "v": jnp.asarray(c["v"])}
+    tsl = convert.slots_from_numpy(
+        {"t": jax.tree.map(np.asarray, jsl)}, "cpu")["t"]
+    values = jnp.asarray(c["values"])
+    tvalues = torch.from_numpy(c["values"].copy())
+    for gs in range(2):          # twice: Adam's beta powers advance
+        jsl, values = jo.apply(jc, jsl, values, jlk,
+                               jnp.asarray(c["grads"]), gs)
+        tsl, tvalues = to.apply(tc, tsl, tvalues, tlk,
+                                torch.from_numpy(c["grads"]), gs)
+        jlk = jlk._replace(rows=jnp.where(
+            jlk.admitted[:, None], values[jnp.minimum(jlk.slots, C)],
+            jlk.rows))
+    np.testing.assert_allclose(tvalues.numpy(), np.asarray(values), **TOL)
+    for k, v in jsl.items():
+        np.testing.assert_allclose(tsl[k].numpy(), np.asarray(v), **TOL)
+
+
+# -- on the card ---------------------------------------------------------------
+
+def _kernel_vs_plain(device, opt, C, D, n, seed):
+    c = _case(C, D, n, seed)
+    kt, pt = _t(c, device), _t(c, device)
+    if opt == "adagrad":
+        sa.adagrad_apply_rows(kt["values"], kt["acc"], kt["slots"],
+                              kt["grads"], 0.05, update=kt["update"],
+                              is_new=kt["is_new"], init_acc=0.1)
+        sa.adagrad_apply_rows_reference(
+            pt["values"], pt["acc"], pt["slots"], pt["grads"], 0.05,
+            update=pt["update"], is_new=pt["is_new"], init_acc=0.1)
+        slot_keys = ("acc",)
+    else:
+        alpha = torch.tensor([0.01], device=device)
+        sa.adam_apply_rows(kt["values"], kt["m"], kt["v"], kt["slots"],
+                           kt["grads"], alpha, *ADAM, update=kt["update"],
+                           is_new=kt["is_new"])
+        sa.adam_apply_rows_reference(
+            pt["values"], pt["m"], pt["v"], pt["slots"], pt["grads"], alpha,
+            *ADAM, update=pt["update"], is_new=pt["is_new"])
+        slot_keys = ("m", "v")
+    torch.cuda.synchronize()
+    for k in slot_keys:
+        assert torch.equal(kt[k], pt[k]), k
+    torch.testing.assert_close(kt["values"], pt["values"], rtol=1e-6,
+                               atol=1e-7)
+    assert torch.equal(kt["values"][C], pt["values"][C])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [1, 8, 17, 65, 129])
+def test_kernel_matches_plain_on_card(cuda_device, opt, D):
+    name = f"{opt}_apply_rows"
+    before = sa.launches[name]
+    _kernel_vs_plain(cuda_device, opt, 5000, D, 4099, D)
+    assert sa.launches[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_operands(cuda_device):
+    c = _t(_case(100, 8, 50, 0), cuda_device)
+    with pytest.raises(TypeError):
+        sa.adagrad_apply_rows(c["values"], c["acc"], c["slots"].long(),
+                              c["grads"], 0.1)
+    with pytest.raises(ValueError):
+        sa.adagrad_apply_rows(c["values"], c["acc"][:-1], c["slots"],
+                              c["grads"], 0.1)
+    with pytest.raises(TypeError):
+        sa.adam_apply_rows(c["values"], c["m"], c["v"], c["slots"],
+                           c["grads"], 0.01, *ADAM)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    sa.adagrad_apply_rows(c["values"], c["acc"], empty,
+                          c["grads"][:0], 0.1)

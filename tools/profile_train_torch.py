@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Step time, host syncs and device-time split of the port's headline
+training step.
+
+Run from the repository root on one CUDA card:
+
+    python3 tools/profile_train_torch.py [--steps 20] [--opt adagrad]
+        [--trace build/train_trace_torch.json]
+
+It builds the headline WDL of ``deeprec_tpu_torch.bench`` (reference
+shapes, B = 16,384, ``SparseAdagrad`` or ``SparseAdam``) and, after 10
+warm-up steps on 8 pre-packed batches:
+
+1. times ``--steps`` steps with the host clock, fenced by
+   ``torch.cuda.synchronize()``: median step time and samples/s;
+2. counts the host syncs of one step: ``torch.cuda.set_sync_debug_mode``
+   warns at every operation that waits for the card, and the warnings
+   are counted by the operation that raised them;
+3. runs ``torch.profiler`` over 5 steps with spans around the layers:
+   probe (``hash_table.find_or_insert``), fetch (K1, ``gather_rows``),
+   lookup (the rest of ``lookup_train_occ``: first-occurrence dedup,
+   compaction, row init, metadata), combine, towers forward (the model's
+   ``apply_fn``), backward (``torch.autograd.grad``), dense Adagrad and
+   the sparse apply (K2 or K3). Each device event is charged to the
+   innermost span whose host interval holds its launch (the backward's
+   launches come from autograd's own thread while the step waits inside
+   its span); launches outside every span go to "other". It prints the
+   profiled wall time, the device's busy share (union of device
+   intervals over the wall time), device time per step by layer, and the
+   kernels that take the most device time. The Chrome trace goes to
+   ``--trace``.
+
+The spans are added here by rebinding the functions the step calls
+through their modules; the package itself carries no spans.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import json
+import os
+import statistics
+import sys
+import time
+import warnings
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROFILED_STEPS = 5
+WARMUP = 10
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _spanned(name, fn):
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function("stage:" + name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def stage_spans(opt_name: str):
+    """Rebind the training step's layer functions to spanned versions."""
+    from deeprec_tpu_torch.embedding import hash_table, variable
+    from deeprec_tpu_torch.feature_column import feature_column
+    from deeprec_tpu_torch.ops.kernels import gather, sparse_apply
+    from deeprec_tpu_torch.optimizers import dense
+    targets = [(hash_table, "find_or_insert", "probe"),
+               (gather, "gather_rows", "fetch"),
+               (variable, "lookup_train_occ", "lookup"),
+               (feature_column.EmbeddingGroup, "combine", "combine"),
+               (torch.autograd, "grad", "backward"),
+               (dense.Adagrad, "apply", "dense_adagrad"),
+               (sparse_apply, f"{opt_name}_apply_rows", "sparse_apply")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in targets]
+    for obj, attr, name in targets:
+        setattr(obj, attr, _spanned(name, getattr(obj, attr)))
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def device_split(trace_path: str, steps: int):
+    """Charge device events to the innermost host span that launched
+    them; print busy share, per-layer and per-kernel device time."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len("stage:"):])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("stage:"))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    marks = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "train_step"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    by_stage = collections.Counter()
+    by_kernel = collections.Counter()
+    for e in device:
+        stage = "other"
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        if ts is not None:
+            best = None
+            for s0, s1, name in spans:
+                if s0 > ts:
+                    break
+                if ts <= s1 and (best is None or s0 >= best[0]):
+                    best = (s0, name)
+            if best is not None:
+                stage = best[1]
+        by_stage[stage] += e["dur"]
+        by_kernel[e["name"][:90]] += e["dur"]
+    t0 = min(e["ts"] for e in marks)
+    t1 = max(max(e["ts"] + e["dur"] for e in marks),
+             max(e["ts"] + e["dur"] for e in device))
+    busy, end = 0.0, t0
+    for s, d in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if d > end:
+            busy += d - max(s, end)
+            end = d
+    total = sum(by_stage.values())
+    print(f"profile: {steps} steps, wall {(t1 - t0) / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms ({100 * busy / (t1 - t0):.1f} %), "
+          f"device events {len(device)} ({len(device) / steps:.0f} per "
+          f"step)", flush=True)
+    for stage, us in by_stage.most_common():
+        print(f"profile: {stage}: {us / steps / 1e3:.3f} ms device time per "
+              f"step ({100 * us / total:.1f} %)", flush=True)
+    for name, us in by_kernel.most_common(12):
+        print(f"profile kernel: {us / steps / 1e3:.3f} ms per step: {name}",
+              flush=True)
+
+
+def count_syncs(step, ts, batch):
+    """Run one step with sync warnings on; returns (state, counts by
+    the line of the port that waited)."""
+    counts = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ts, _ = step(ts, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        counts[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"] += 1
+    return ts, counts
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--opt", default="adagrad", choices=("adagrad", "adam"))
+    ap.add_argument("--trace", default=os.path.join(
+        "build", "train_trace_torch.json"))
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from deeprec_tpu_torch import bench
+
+    chip_smoke.phase_device()
+    tr = bench.build_wdl(reference_shapes=True, device="cuda",
+                         sparse_opt=args.opt)
+    batches = [tr.next_batch() for _ in range(bench.PREPACKED)]
+    ts = tr.ts
+    for i in range(WARMUP):
+        ts, _ = tr.step(ts, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        ts, m = tr.step(ts, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    print(f"step: median {med:.3f} ms, min {min(times):.3f}, max "
+          f"{max(times):.3f} over {args.steps} synchronized steps; "
+          f"{bench.BATCH / (med * 1e-3):.0f} samples/s; loss "
+          f"{float(m['loss']):.6f}", flush=True)
+
+    ts, syncs = count_syncs(tr.step, ts, batches[0])
+    print(f"host syncs in one step: {sum(syncs.values())}", flush=True)
+    for where, n in syncs.most_common():
+        print(f"host syncs: {n} at {where}", flush=True)
+
+    # Spans need the model's apply_fn wrapped, which the step captured
+    # when it was made: make a step of the same parts around it.
+    from deeprec_tpu_torch.train.loop import make_train_step
+    step = make_train_step(tr.group, _spanned("towers_fwd", tr.apply_fn),
+                           tr.loss_fn, tr.sparse_opt, tr.dense_opt)
+    with stage_spans(args.opt):
+        for i in range(3):
+            ts, _ = step(ts, batches[i])
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(PROFILED_STEPS):
+                with torch.profiler.record_function("train_step"):
+                    ts, _ = step(ts, batches[i])
+            torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    device_split(args.trace, PROFILED_STEPS)
+
+
+if __name__ == "__main__":
+    main()
