@@ -11,9 +11,11 @@ non-zero:
 2. build: the ``gather_rows`` and ``sparse_apply`` kernels from
    ``deeprec_tpu_torch/csrc``, one ``nvcc`` each, in parallel.
 3. K1 against its plain PyTorch version on the card, exact (a gather is
-   a copy), at the serving shapes and at edge cases; median times of
-   both over 20 calls, and of ``torch.nn.functional.embedding`` on the
-   clamped slots (the library call for a plain gather).
+   a copy), at the serving shapes with uniform slots and at edge cases
+   (``EDGE_WIDTHS``, bf16 at odd D, n below a warp, ragged and empty,
+   the last row read); device times of both (``median_ms``), and of
+   ``torch.nn.functional.embedding`` on the clamped slots (the library
+   call for a plain gather).
 4. serving state at reference shapes: the headline WDL (two coalesced
    tables, 129 x 4,194,305 and 65 x 524,289 float32) filled with the
    distinct ids of 32 synthetic Criteo batches of 16,384, rows drawn as
@@ -23,22 +25,29 @@ non-zero:
    scores a 16,384 batch through K1 (launch count reset just before,
    read just after), against the same state scored with the plain
    gather, and against a CPU restore of the checkpoint on a small input.
+   Then K1 on that request's own lookup operands, both tables: equal to
+   its plain version, timed beside it and ``F.embedding``.
 6. the worker process: spawned, queried over HTTP, its answers checked
    against phase 5's scores, shut down by closing its stdin.
 7. (a) K2 (sparse Adagrad) and K3 (lazy Adam) against their plain
    versions at the headline shapes, with dropped slots, filtered rows
-   and fresh rows, and at edge cases; median times over 20 calls.
+   and fresh rows, and at edge cases (``EDGE_WIDTHS``, n below a warp,
+   ragged and empty, update shares of none, one row per 32, ~26 % and
+   all, the last writable row updated); device times.
 8. (b) the headline training step through ``deeprec_tpu_torch.bench``:
    30 warm-up and 30 measured steps at B = 16,384 (samples/s, per-step
    ``n_overflow``, finite losses), with K1 and K2 launch counts reset
-   just before and read just after. Then one step's row gradients,
-   taken once, are applied by K2 to one copy of the tables and by the
-   plain version to another, compared, and both timed.
+   just before and read just after. Then one more step's lookup runs
+   with K1's operands recorded, and K1 is compared and timed on them,
+   both tables, as in phase 5; that step's row gradients, taken once,
+   are applied by K2 to one copy of the tables and by the plain version
+   to another, compared, and both timed. The kernels' record takes K1's
+   and K2's times from here.
 9. (d) that trained state saved as a full checkpoint and restored with
    the port's ``CheckpointManager``: equal eval scores, and the
    checkpoint holds ``slot/['accum']`` rows and ``dense_opt`` leaves.
 10. (c) the same path with ``sparse_opt="adam"`` for a few steps, with
-   the same checks for K3.
+   the same checks for K1 and K3.
 11. (e) the sizes of ``__graft_entry__._build`` built with the port
    alone, three steps on the card and on the CPU from the same weights;
    the losses must agree.
@@ -49,6 +58,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -66,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
 INSERT_BATCHES = 32
 REPS = 20
+GRAPH_CALLS = 10  # calls of a timed function per captured CUDA graph
 # Card vs CPU logits on the same state: bf16 GEMMs round differently on
 # the two devices. About 10x the reading of two runs on an H100 (max abs
 # diff 1.878e-4 in both).
@@ -88,6 +99,9 @@ ADAM_STEPS = (2, 3)  # warm-up and measured steps of phase (c)
 # About 17x the reading on an H100 (max abs diff 5.96e-8, both
 # optimizers).
 SMALL_LOSS_ATOL = 1e-6
+# Row widths of the kernels' edge cases: below, at and one above
+# multiples of the 32 lanes of a warp.
+EDGE_WIDTHS = (1, 4, 17, 64, 65, 128, 129, 256, 257)
 
 
 def log(msg: str):
@@ -95,19 +109,34 @@ def log(msg: str):
 
 
 def median_ms(fn) -> float:
-    """Median device time of ``fn`` over REPS calls, each fenced."""
-    fn()
-    torch.cuda.synchronize()
+    """Device time of one call of ``fn``: GRAPH_CALLS calls captured in a
+    CUDA graph, the median over REPS replays divided by GRAPH_CALLS.
+    Each timed replay is queued behind an untimed one, so the card never
+    waits on the host: a wrapper's launch overhead (tens of us of
+    Python) is not counted, as it is not on the card in a step whose
+    launches run ahead. Back-to-back calls find their operands partly
+    in L2 where they fit (50 MB)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
     times = []
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        graph.replay()
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / GRAPH_CALLS)
+    del graph
     return float(np.median(times))
 
 
@@ -144,9 +173,9 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def phase_kernel() -> dict:
-    """Kernel vs plain version; returns the record of the main-path form
-    (fused select on the 129-wide table)."""
+def phase_kernel() -> float:
+    """Kernel vs plain version at the serving shapes (timed) and at edge
+    cases; returns the largest error seen (0.0: a gather is a copy)."""
     from deeprec_tpu_torch.ops.kernels import gather
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -177,7 +206,6 @@ def phase_kernel() -> dict:
         s[3 * k:3 * k + 1] = 2**31 - 1
         return s
 
-    record = None
     for C1, D, n in ((4194305, 129, BATCH * 8), (524289, 65, BATCH * 18)):
         values = torch.randn(C1, D, generator=gen, device=dev)
         slots = slots_for(C1, n)
@@ -203,32 +231,100 @@ def phase_kernel() -> dict:
             f"ms); with default select {ms_sel:.4f} ms (plain "
             f"{plain_sel:.4f} ms), {gbs:.1f} GB/s moved by the kernel, "
             f"bound {bound:.4f} ms")
-        if record is None:
-            record = {"ms": ms_sel, "plain_ms": plain_sel,
-                      "bound_ms": bound, "library_ms": lib}
         del values, slots, admitted, bank, clamped
     torch.cuda.empty_cache()
-    # Edge cases: narrow and 128-wide rows, bf16, ragged and empty n,
-    # a multi-row default bank.
-    for C1, D, n, dtype in ((100003, 1, 77777, torch.float32),
-                            (100003, 17, 77777, torch.float32),
-                            (100003, 128, 77777, torch.float32),
-                            (100003, 65, 4099, torch.bfloat16),
-                            (100003, 129, 0, torch.float32)):
-        values = torch.randn(C1, D, generator=gen, device=dev).to(dtype)
-        slots = slots_for(C1, n) if n else torch.zeros(
-            0, dtype=torch.int32, device=dev)
-        admitted = torch.rand(n, generator=gen, device=dev) < 0.5
-        bank = torch.randn(3, D, generator=gen, device=dev).to(dtype)
-        sel = torch.randint(0, 3, (n,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        check(values, slots)
-        check(values, slots, admitted, bank)
-        check(values, slots, admitted, bank, sel)
+    # Edge cases: widths below, at and one above multiples of the warp,
+    # bf16 at odd D, n below a warp and ragged against the 16-row tiles,
+    # empty n, a multi-row default bank; slots_for makes every case read
+    # the table's last row (C), which ends the allocation.
+    cases = 0
+    for D in EDGE_WIDTHS:
+        for dtype in ((torch.float32, torch.bfloat16) if D % 2
+                      else (torch.float32,)):
+            C1 = 100003
+            values = torch.randn(C1, D, generator=gen, device=dev).to(dtype)
+            bank = torch.randn(3, D, generator=gen, device=dev).to(dtype)
+            for n in (0, 5, 31, 4099, 77777):
+                slots = slots_for(C1, n) if n else torch.zeros(
+                    0, dtype=torch.int32, device=dev)
+                admitted = torch.rand(n, generator=gen, device=dev) < 0.5
+                sel = torch.randint(0, 3, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                check(values, slots)
+                check(values, slots, admitted, bank)
+                check(values, slots, admitted, bank, sel)
+                cases += 3
+            del values, bank
     log(f"phase 3 kernel: equal to the plain version on every case "
-        f"(max abs err {max_err})")
-    record["max_abs_err"] = max_err
-    return record
+        f"({cases} edge cases; max abs err {max_err})")
+    return max_err
+
+
+@contextlib.contextmanager
+def captured_gathers():
+    """Record the operands of every ``gather_rows`` call the lookups make
+    (``variable`` calls it through the module), still launching K1."""
+    from deeprec_tpu_torch.ops.kernels import gather
+    calls = []
+    kernel_fn = gather.gather_rows
+
+    def recording(*args):
+        calls.append(args)
+        return kernel_fn(*args)
+
+    gather.gather_rows = recording
+    try:
+        yield calls
+    finally:
+        gather.gather_rows = kernel_fn
+
+
+def _gather_bytes(values, slots, admitted, bank, sel) -> int:
+    """Bytes a fetch with these operands must move: each output row
+    written once, each distinct source row (table or bank) read once,
+    and the slot (4 B), admitted flag (1 B) and select index (4 B) of
+    every row. On the training path most rows read the one bank row."""
+    n, D = slots.numel(), values.shape[1]
+    C = values.shape[0] - 1
+    src = torch.clamp(slots.long(), 0, C)
+    head = 4
+    if admitted is not None:
+        b = (torch.clamp(sel.long(), 0, bank.shape[0] - 1) if sel is not None
+             else torch.zeros_like(src))
+        src = torch.where(admitted, src, C + 1 + b)
+        head += 1 + (4 if sel is not None else 0)
+    distinct = int(torch.unique(src).numel())
+    return (n + distinct) * D * values.element_size() + head * n
+
+
+def compare_gather(label: str, values, slots, admitted=None, bank=None,
+                   sel=None) -> dict:
+    """K1 on a lookup's own operands: equal to its plain version; median
+    times of both and of ``F.embedding`` on the clamped slots; the bound
+    from what these operands need."""
+    from deeprec_tpu_torch.ops.kernels import gather
+    args = (values, slots, admitted, bank, sel)
+    got = gather.gather_rows(*args)
+    want = gather.gather_rows_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_rows {label}: differs from its plain "
+                             f"version")
+    C1, D = values.shape
+    clamped = torch.clamp(slots.long(), 0, C1 - 1)
+    rec = {"max_abs_err": 0.0,
+           "ms": median_ms(lambda: gather.gather_rows(*args)),
+           "plain_ms": median_ms(lambda: gather.gather_rows_reference(*args)),
+           "library_ms": median_ms(
+               lambda: torch.nn.functional.embedding(clamped, values)),
+           "bound_ms": bound_ms(_gather_bytes(*args))}
+    log(f"phase {label}: gather_rows [{C1}, {D}] "
+        f"{str(values.dtype).split('.')[-1]}, n={slots.numel()}, "
+        f"{int(admitted.sum()) if admitted is not None else slots.numel()} "
+        f"admitted: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+        f"ms, F.embedding {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms; equal to the plain version")
+    return rec
 
 
 def phase_state(ckpt_dir: str):
@@ -329,6 +425,11 @@ def phase_serving(parts, raw, ckpt_dir: str):
         raise AssertionError(f"kernel path vs plain gather: max abs logit "
                              f"diff {float((out - plain).abs().max())}")
     log("phase 5 serving: kernel path vs plain gather, identical logits")
+    with captured_gathers() as calls:
+        serving.predict(batch)
+    for args in calls:
+        compare_gather("5 serving fetch", *args)
+    del calls
 
     t0 = time.perf_counter()
     cpu = wdl_entry.build({"device": "cpu", "reference_shapes": True})
@@ -477,6 +578,9 @@ def phase_apply_kernels() -> float:
     max_err = 0.0
 
     def inputs(C1, D, n, drop=0.01, upd_share=0.9, new_share=0.2):
+        """``upd_share`` "one" updates one row in each group of 32; with
+        a share above 0, the last row the kernel may write (C - 1) is
+        among the updated slots."""
         C = C1 - 1
         slots = torch.randperm(C, generator=gen, device=dev)[:n].to(
             torch.int32)
@@ -486,7 +590,14 @@ def phase_apply_kernels() -> float:
             slots[k:2 * k] = C + 17             # above C
             slots[2 * k:3 * k] = -5             # negative
         grads = torch.randn(n, D, generator=gen, device=dev)
-        upd = torch.rand(n, generator=gen, device=dev) < upd_share
+        if upd_share == "one":
+            upd = torch.arange(n, device=dev) % 32 == 7
+        else:
+            upd = torch.rand(n, generator=gen, device=dev) < upd_share
+        if n > 3 * k and upd_share != 0.0:
+            if not bool((slots == C - 1).any()):
+                slots[3 * k] = C - 1
+            upd[slots == C - 1] = True
         is_new = torch.rand(n, generator=gen, device=dev) < new_share
         return slots, grads, upd, is_new
 
@@ -504,20 +615,27 @@ def phase_apply_kernels() -> float:
             rec = compare_apply(kind, values, tables, slots, grads, upd,
                                 is_new, args, "7 (a)", time_it=True)
             max_err = max(max_err, rec["max_abs_err"])
-            # Edge cases on the same table: narrow, ragged, empty, every
-            # row dropped, no masks.
-            for D2, n2 in ((1, 4099), (17, 77777), (128, 4099)):
+            # Edge cases: the edge widths; n below a warp and ragged
+            # against K2's groups of 4 or 8 u-rows; update shares of
+            # none, one row in 32 (most groups apply nothing), the
+            # training path's ~26 %, half and all; no masks. Then on the
+            # headline table: empty, every row dropped.
+            for D2 in EDGE_WIDTHS:
                 v2 = torch.randn(100003, D2, generator=gen, device=dev)
                 t2 = [torch.rand(100003, D2, generator=gen, device=dev) + 0.1
                       for _ in tables]
-                s2, g2, u2, i2 = inputs(100003, D2, n2, drop=0.05,
-                                        upd_share=0.5, new_share=0.5)
-                rec = compare_apply(kind, v2, t2, s2, g2, u2, i2, args,
+                for n2, share in ((5, 1.0), (31, 0.26), (4099, 0.0),
+                                  (4099, "one"), (4099, 0.26), (4099, 1.0),
+                                  (77777, 0.5)):
+                    s2, g2, u2, i2 = inputs(100003, D2, n2, drop=0.05,
+                                            upd_share=share, new_share=0.5)
+                    rec = compare_apply(kind, v2, t2, s2, g2, u2, i2, args,
+                                        "7 (a) edge", time_it=False)
+                    max_err = max(max_err, rec["max_abs_err"])
+                rec = compare_apply(kind, v2, t2, s2, g2, None, None, args,
                                     "7 (a) edge", time_it=False)
-                rec2 = compare_apply(kind, v2, t2, s2, g2, None, None, args,
-                                     "7 (a) edge", time_it=False)
-                max_err = max(max_err, rec["max_abs_err"],
-                              rec2["max_abs_err"])
+                max_err = max(max_err, rec["max_abs_err"])
+                del v2, t2
             empty = torch.zeros(0, dtype=torch.int32, device=dev)
             compare_apply(kind, values, tables, empty, grads[:0], None, None,
                           args, "7 (a) empty", time_it=False)
@@ -546,8 +664,10 @@ def _step_grads(tr, batch):
 
 def phase_train(kind: str, label: str, warmup: int, steps: int):
     """(b)/(c) the headline training path with ``kind`` sparse optimizer:
-    launch counts over the timed run, then kernel vs plain applies from
-    one step's gradients. Returns (trainer, kernel records, launches)."""
+    launch counts over the timed run, then K1 on one more step's own
+    lookup operands and kernel vs plain applies from that step's
+    gradients. Returns (trainer, run summary, apply records, fetch
+    records, launches)."""
     from deeprec_tpu_torch import bench
     from deeprec_tpu_torch.ops.kernels import gather
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
@@ -573,7 +693,11 @@ def phase_train(kind: str, label: str, warmup: int, steps: int):
 
     # The same gradients through the kernel and through the plain
     # version, on copies of the trained tables.
-    gl, grads = _step_grads(tr, tr.next_batch())
+    with captured_gathers() as calls:
+        gl, grads = _step_grads(tr, tr.next_batch())
+    fetch = [compare_gather(f"{label} same lookup", *args)
+             for args in calls]
+    del calls
     recs = []
     for tname, g in grads.items():
         cfg = tr.group.tables[tname]
@@ -594,7 +718,7 @@ def phase_train(kind: str, label: str, warmup: int, steps: int):
                                   lk.slots, g.contiguous(), upd, lk.is_new,
                                   args, f"{label} same gradients",
                                   time_it=True))
-    return tr, out, recs, launches
+    return tr, out, recs, fetch, launches
 
 
 def phase_checkpoint(tr, ckpt_dir: str):
@@ -692,7 +816,7 @@ def main():
     kind = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
-    k1 = phase_kernel()
+    gather_err = phase_kernel()
     apply_err = phase_apply_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ckpt_dir:
         parts, raw = phase_state(ckpt_dir)
@@ -700,13 +824,14 @@ def main():
         del parts
         torch.cuda.empty_cache()
         phase_worker(raw, logits, ckpt_dir)
-    tr, _, k2, launches = phase_train("adagrad", "8 (b)", 30, 30)
+    tr, _, k2, k1, launches = phase_train("adagrad", "8 (b)", 30, 30)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
         phase_checkpoint(tr, d)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    tr, _, k3, adam_launches = phase_train("adam", "10 (c)", *ADAM_STEPS)
+    tr, _, k3, _, adam_launches = phase_train("adam", "10 (c)",
+                                              *ADAM_STEPS)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -715,7 +840,8 @@ def main():
     pallas = "deeprec_tpu/ops/pallas/"
     print(json.dumps({"kernels": [
         _record("gather_rows", src + "gather_rows.cu", pallas + "gather.py:72",
-                launches["gather_rows"], k1["max_abs_err"], k1),
+                launches["gather_rows"], gather_err,
+                max(k1, key=lambda r: r["bound_ms"])),
         _record("adagrad_apply_rows", src + "sparse_apply.cu",
                 pallas + "sparse_apply.py:113",
                 launches["adagrad_apply_rows"],

@@ -87,16 +87,20 @@ def test_no_fallback_for_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 17, 65, 128, 129])
+@pytest.mark.parametrize("D", [1, 4, 17, 64, 65, 128, 129, 256, 257])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(cuda_device, D, dtype):
+    # n below a warp, ragged against the kernel's 16-row tiles, and
+    # empty; the table's last row (C) is read by clamped and exact slots.
     g = torch.Generator(device="cpu").manual_seed(D)
     C1 = 5003
     values = torch.randn(C1, D, generator=g).to(dtype).to(cuda_device)
     bank = torch.randn(4, D, generator=g).to(dtype).to(cuda_device)
-    for n in (0, 1, 1000, 4099):
+    for n in (0, 1, 5, 31, 33, 1000, 4099):
         slots = torch.randint(-5, C1 + 9, (n,), generator=g,
-                              dtype=torch.int32).to(cuda_device)
+                              dtype=torch.int32)
+        slots[-1:] = C1 - 1
+        slots = slots.to(cuda_device)
         admitted = (torch.rand(n, generator=g) < 0.5).to(cuda_device)
         sel = torch.randint(0, 4, (n,), generator=g,
                             dtype=torch.int32).to(cuda_device)

@@ -38,19 +38,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(C, D, n, seed, drops=True):
+def _case(C, D, n, seed, drops=True, share=0.8):
     """Tables [C+1, D], n unique slots in [0, C) with (when ``drops``)
-    the sentinel C and two slots above it, grads, and masks."""
+    the sentinel C and two slots above it, grads, and masks; a share of
+    rows to update, or "one" for one row in each group of 32."""
     r = np.random.default_rng(seed)
     values = r.normal(size=(C + 1, D)).astype(np.float32)
     acc = r.uniform(0.1, 1.0, size=(C + 1, D)).astype(np.float32)
     m = r.normal(0, 0.1, size=(C + 1, D)).astype(np.float32)
     v = r.uniform(0, 0.1, size=(C + 1, D)).astype(np.float32)
     slots = r.permutation(C)[:n].astype(np.int32)
-    if drops:
+    if drops and n >= 3:
         slots[:3] = [C, C + 1, C + 17]
     grads = r.normal(size=(n, D)).astype(np.float32)
-    update = r.random(n) < 0.8
+    if share == "one":
+        update = np.arange(n) % 32 == 7
+    else:
+        update = r.random(n) < share
     is_new = r.random(n) < 0.3
     return dict(values=values, acc=acc, m=m, v=v, slots=slots, grads=grads,
                 update=update, is_new=is_new)
@@ -163,8 +167,12 @@ def test_optimizer_apply_matches_jax(opt, D):
 
 # -- on the card ---------------------------------------------------------------
 
-def _kernel_vs_plain(device, opt, C, D, n, seed):
-    c = _case(C, D, n, seed)
+def _kernel_vs_plain(device, opt, C, D, n, seed, share=0.8):
+    c = _case(C, D, n, seed, share=share)
+    if n > 3:
+        if C - 1 not in c["slots"]:
+            c["slots"][3] = C - 1      # the last row the kernel may write
+        c["update"][c["slots"] == C - 1] = share != 0.0
     kt, pt = _t(c, device), _t(c, device)
     if opt == "adagrad":
         sa.adagrad_apply_rows(kt["values"], kt["acc"], kt["slots"],
@@ -193,12 +201,16 @@ def _kernel_vs_plain(device, opt, C, D, n, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("opt", ["adagrad", "adam"])
-@pytest.mark.parametrize("D", [1, 8, 17, 65, 129])
-def test_kernel_matches_plain_on_card(cuda_device, opt, D):
+@pytest.mark.parametrize("D", [1, 4, 8, 17, 64, 65, 128, 129, 256, 257])
+@pytest.mark.parametrize("n", [0, 5, 31, 33, 4099])
+@pytest.mark.parametrize("share", [0.0, "one", 0.26, 0.8, 1.0])
+def test_kernel_matches_plain_on_card(cuda_device, opt, D, n, share):
+    # Update shares: none, one row in 32 (most of K2's 4- or 8-row
+    # groups apply nothing), the training path's ~26 %, most and all.
     name = f"{opt}_apply_rows"
     before = sa.launches[name]
-    _kernel_vs_plain(cuda_device, opt, 5000, D, 4099, D)
-    assert sa.launches[name] == before + 1
+    _kernel_vs_plain(cuda_device, opt, 5000, D, n, D, share)
+    assert sa.launches[name] == before + (1 if n else 0)
 
 
 @pytest.mark.cuda
