@@ -33,7 +33,9 @@ non-zero:
    versions at the headline shapes, with dropped slots, filtered rows
    and fresh rows, and at edge cases (``EDGE_WIDTHS``, n below a warp,
    ragged and empty, update shares of none, one row per 32, ~26 % and
-   all, the last writable row updated); device times.
+   all, the last writable row updated); device times. An apply's bound
+   counts what its rows need: a fresh row's slot rows are not read
+   (``_apply_bytes``).
 8. (b) the headline training step through ``deeprec_tpu_torch.bench``:
    30 warm-up and 30 measured steps at B = 16,384 (samples/s, per-step
    ``n_overflow``, finite losses), with K1 and K2 launch counts reset
@@ -520,12 +522,29 @@ def _apply(kind, values, slots, grads, upd, is_new, tables, args, plain):
               is_new=is_new)
 
 
-def _apply_bytes(kind, D, upd, slots) -> int:
-    """Bytes an apply must move: per element of an updated row 20
-    (Adagrad: read w, acc, g; write w, acc) or 28 (Adam: w, m, v, g
-    read; w, m, v written), plus slot (4 B) and two flags per row."""
-    per = 20 if kind == "adagrad" else 28
-    return per * D * int(upd.sum()) + 6 * slots.numel()
+def _applied(C, slots, upd, is_new):
+    """(applied, fresh): the u-rows an apply updates (``upd``, all when
+    None, and 0 <= slot < C), and those of them with ``is_new``."""
+    applied = (slots >= 0) & (slots < C)
+    if upd is not None:
+        applied = applied & upd
+    fresh = (applied & is_new if is_new is not None
+             else torch.zeros_like(applied))
+    return applied, fresh
+
+
+def _apply_bytes(kind, C, D, slots, upd, is_new) -> int:
+    """Bytes an apply with these operands must move. Per element of an
+    applied row 20 (Adagrad: read w, acc, g; write w, acc) or 28 (Adam:
+    w, m, v, g read; w, m, v written); a fresh row's slot rows are not
+    read, so 16 or 20 for it. Per u-row its slot (4 B) and each flag
+    given (1 B)."""
+    applied, fresh = _applied(C, slots, upd, is_new)
+    n_fresh = int(fresh.sum())
+    n_old = int(applied.sum()) - n_fresh
+    old, new = (20, 16) if kind == "adagrad" else (28, 20)
+    head = 4 + (upd is not None) + (is_new is not None)
+    return D * (old * n_old + new * n_fresh) + head * slots.numel()
 
 
 def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
@@ -553,16 +572,18 @@ def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
     rec = {"max_abs_err": err}
     if time_it:
         D = values.shape[1]
-        mask = upd & (slots >= 0) & (slots < C)
-        nbytes = _apply_bytes(kind, D, mask, slots)
+        applied, fresh = _applied(C, slots, upd, is_new)
+        nbytes = _apply_bytes(kind, C, D, slots, upd, is_new)
         rec["ms"] = median_ms(lambda: _apply(kind, kv, slots, grads, upd,
                                              is_new, kt, args, plain=False))
         rec["plain_ms"] = median_ms(lambda: _apply(
             kind, pv, slots, grads, upd, is_new, pt, args, plain=True))
         rec["bound_ms"] = bound_ms(nbytes)
-        rec["updated"] = int(mask.sum())
+        rec["updated"] = int(applied.sum())
+        rec["fresh"] = int(fresh.sum())
         log(f"phase {label}: {kind} [{C + 1}, {D}], n={slots.numel()}, "
-            f"{rec['updated']} rows updated: kernel {rec['ms']:.4f} ms "
+            f"{rec['updated']} rows updated ({rec['fresh']} fresh): kernel "
+            f"{rec['ms']:.4f} ms "
             f"({nbytes / rec['ms'] / 1e6:.1f} GB/s), plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; "
             f"max abs err {err}")
@@ -662,6 +683,30 @@ def _step_grads(tr, batch):
     return gl, dict(zip(rows, grads))
 
 
+def _step_applies(tr, kind, gl, grads):
+    """Per table, the operands the step's sparse apply (``kind``) takes
+    from the lookup ``gl`` and row gradients ``grads`` of
+    :func:`_step_grads`: (values, slot tables, slots, grads, update,
+    is_new, optimizer args)."""
+    o = tr.sparse_opt
+    ops = []
+    for tname, g in grads.items():
+        lk = gl.lks[tname]
+        upd = lk.admitted & (lk.slots < tr.group.tables[tname].capacity)
+        sl = tr.ts.slots[tname]
+        if kind == "adagrad":
+            tables = [sl["accum"]]
+            args = (o.learning_rate, o.initial_accumulator_value)
+        else:
+            alpha = (o.learning_rate * torch.sqrt(1 - sl["beta2_power"])
+                     / (1 - sl["beta1_power"])).reshape(1)
+            tables = [sl["m"], sl["v"]]
+            args = (alpha, o.beta1, o.beta2, o.epsilon)
+        ops.append((tr.ts.ev[tname].values, tables, lk.slots,
+                    g.contiguous(), upd, lk.is_new, args))
+    return ops
+
+
 def phase_train(kind: str, label: str, warmup: int, steps: int):
     """(b)/(c) the headline training path with ``kind`` sparse optimizer:
     launch counts over the timed run, then K1 on one more step's own
@@ -698,26 +743,9 @@ def phase_train(kind: str, label: str, warmup: int, steps: int):
     fetch = [compare_gather(f"{label} same lookup", *args)
              for args in calls]
     del calls
-    recs = []
-    for tname, g in grads.items():
-        cfg = tr.group.tables[tname]
-        lk = gl.lks[tname]
-        upd = lk.admitted & (lk.slots < cfg.capacity)
-        sl = tr.ts.slots[tname]
-        if kind == "adagrad":
-            tables = [sl["accum"]]
-            args = (tr.sparse_opt.learning_rate,
-                    tr.sparse_opt.initial_accumulator_value)
-        else:
-            o = tr.sparse_opt
-            alpha = (o.learning_rate * torch.sqrt(1 - sl["beta2_power"])
-                     / (1 - sl["beta1_power"])).reshape(1)
-            tables = [sl["m"], sl["v"]]
-            args = (alpha, o.beta1, o.beta2, o.epsilon)
-        recs.append(compare_apply(kind, tr.ts.ev[tname].values, tables,
-                                  lk.slots, g.contiguous(), upd, lk.is_new,
-                                  args, f"{label} same gradients",
-                                  time_it=True))
+    recs = [compare_apply(kind, *ops, f"{label} same gradients",
+                          time_it=True)
+            for ops in _step_applies(tr, kind, gl, grads)]
     return tr, out, recs, fetch, launches
 
 

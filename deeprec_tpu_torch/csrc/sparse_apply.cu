@@ -16,41 +16,53 @@
 //            a = a + g*g
 //            values[s] = values[s] - (lr*g) * rsqrtf(a);  accum[s] = a
 //   Adam:    m = is_new[i] ? 0 : m[s];  v = is_new[i] ? 0 : v[s]
-//            m = beta1*m + (1-beta1)*g;  v = beta2*v + (1-beta2)*g*g
+//            m = beta1*m + (1-beta1)*g;  v = beta2*v + ((1-beta2)*g)*g
 //            values[s] = values[s] - (alpha*m) / (sqrtf(v) + eps)
 //
 // with g = grads[i] ([n, D] float32). alpha (the bias-corrected step)
-// is read from device memory, so the step never waits on the host. The
-// slots of one call are unique by contract (the representatives of the
-// training lookup), so rows never race and no atomics are needed.
+// is read from device memory, once per warp, so the step never waits
+// on the host. The slots of one call are unique by contract (the
+// representatives of the training lookup), so rows never race and no
+// atomics are needed.
 //
-// What bounds it: bytes. Adagrad moves 20 bytes per element of an
-// updated row (read w, acc, g; write w, acc), Adam 28 (w, m, v, g read;
-// w, m, v written), plus a few bytes of index and flags per row, at a
-// few operations per element. Reaching the card's memory rate takes
-// many loads in flight, and on the training path most u-rows are not
+// What bounds them: bytes. Per element of an updated row Adagrad moves
+// 20 bytes (read w, acc, g; write w, acc) and Adam 28 (read w, m, v, g;
+// write w, m, v); a fresh row's slot rows are not read, so 16 and 20
+// for it. Add a few bytes of slot and flags per u-row, at a few
+// operations per element. Reaching the card's memory rate takes many
+// loads in flight, and on the training path most u-rows are not
 // applied at all: where every occurrence is its own u-row, about three
 // in four carry the dropped slot.
 //
-// Adagrad (K2) design: a warp takes a group of kGroup<K> consecutive
-// u-rows (4 or 8). Lane i loads the slot, update flag and is_new flag
-// of row base+i in one coalesced read; __ballot_sync over "updated and
-// 0 <= slot < C" gives the rows to apply, and the warp walks only the
-// set bits, so dropped rows cost a header read and nothing more, with
-// no compaction pass and no host sync. Each applied row is one unit of
-// K = ceil(D/32) column chunks (a template argument up to 8; wider rows
-// take several units). The warp loads a batch of up to kBatch<K> units
-// (every lane: g, w and acc of each chunk, acc skipped for a fresh row)
-// before it does any unit's arithmetic and stores, so up to ~48 loads
-// per lane are in flight. Consecutive lanes stay on consecutive
-// columns: coalesced for any D (65 and 129 included, which the Pallas
-// kernel never compiled for). Small groups keep many warps on the card
-// when few rows are applied: a group of 32 left the 65-wide apply of
-// the training path with 2,102 warps, slower than one warp per row.
+// One walk for both (apply_kernel, over an optimizer op and K =
+// ceil(D/32) up to 8). A warp takes a group of Op::kGroup consecutive
+// u-rows. Lane i loads the slot, update flag and is_new flag of row
+// base+i in one coalesced read; __ballot_sync over "updated and 0 <=
+// slot < C" gives the rows to apply, and the warp walks only the set
+// bits, so dropped rows cost a header read and nothing more, with no
+// compaction pass and no host sync. Each applied row is one unit of K
+// column chunks (wider rows take several units). The warp loads a
+// batch of up to Op::kBatch units, every stream of every chunk, the
+// slot streams skipped for a fresh row, before it does any unit's
+// arithmetic and stores, so 24-64 loads per lane are in flight.
+// Consecutive lanes stay on consecutive columns: coalesced for any D
+// (65 and 129 included, which the Pallas kernels never compiled for).
+// Small groups keep many warps on the card when few rows are applied:
+// a group of 32 left the 65-wide Adagrad apply of the training path
+// with 2,102 warps, slower than one warp per row.
 //
-// Adam (K3) keeps its first design until it gets K2's: one warp per
-// row, lane 0 loads the row's slot and flags and the warp shares them
-// by a shuffle, one element of each stream in flight per lane.
+// The op supplies the unit's registers, its loads and its arithmetic
+// and stores. K2's unit holds 3 streams (g, w, acc) of K chunks, a
+// batch 16 / K units; K3's holds 4 (g, w, m, v), a third more
+// registers per unit. Measured on an H100 in turns (PERF.md §6):
+// K2 ran as fast through the shared walk as in its own kernel; K3's
+// batch of 8 / K units (2 at 65 and 129 wide: 56 and 70 registers, no
+// spills) beat 12 / K and 16 / K by 15 % at 65 wide, where the larger
+// batches' 102-114 registers halve the warps an SM holds, and tied or
+// won at 129 wide; a flat element range over the applied rows (as K1
+// walks its tile), which keeps every lane busy at 129 wide, lost at
+// both widths to its shuffles and index arithmetic; evict-first loads
+// and stores were 39 % slower at 87 % updated.
 //
 // Offsets are int64: (C+1)*D exceeds 2^31 elements at reference table
 // sizes.
@@ -65,101 +77,149 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+// Blocks of 4 warps: at 70 registers (K3, K = 5) an SM then holds 28
+// warps, against 24 in blocks of 8 (PERF.md §6).
+constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxChunks = 8;  // a unit holds up to 32 * 8 = 256 columns
 
-// Row index, its slot, and whether the warp updates it. Uniform across
-// the warp.
-__device__ __forceinline__ bool row_slot(const int32_t* __restrict__ slots,
-                                         const bool* __restrict__ update,
-                                         const bool* __restrict__ is_new,
-                                         int64_t C, int64_t row,
-                                         int64_t* slot, bool* fresh) {
-  const int lane = threadIdx.x % 32;
-  int32_t packed = 0;  // bit 0: update, bit 1: fresh
-  int64_t s = 0;
-  if (lane == 0) {
-    s = static_cast<int64_t>(slots[row]);
-    const bool upd = (update == nullptr || update[row]) && s >= 0 && s < C;
-    const bool nw = is_new != nullptr && is_new[row];
-    packed = (upd ? 1 : 0) | (nw ? 2 : 0);
-  }
-  packed = __shfl_sync(0xffffffffu, packed, 0);
-  *slot = __shfl_sync(0xffffffffu, static_cast<long long>(s), 0);
-  *fresh = (packed & 2) != 0;
-  return (packed & 1) != 0;
+// K3's u-rows per warp (rows of up to 96 columns, wider rows) and the
+// loads per stream a lane holds in one batch of kAdamLoads / K units
+// (at least 2).
+constexpr int kAdamGroupNarrow = 4;
+constexpr int kAdamGroupWide = 8;
+constexpr int kAdamLoads = 8;
+
+constexpr int clamp_batch(int units) {
+  return units < 2 ? 2 : (units > 8 ? 8 : units);
 }
 
-// One K2 work unit: up to 32*K columns of one applied row, held in
-// registers between its loads and its arithmetic.
-template <int K>
-struct AdagradUnit {
-  float g[K], a[K], w[K];
+struct AdagradArgs {
+  float* values;
+  float* accum;
+  float lr, init_acc;
 };
 
-template <int K>
-__device__ __forceinline__ void adagrad_load(
-    AdagradUnit<K>& u, const float* values, const float* accum,
-    const float* __restrict__ grads,
-    int64_t row, int64_t s, int64_t D, int64_t c0, bool fresh,
-    float init_acc, int lane) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int64_t c = c0 + lane + 32 * k;
-    if (c < D) {
-      u.g[k] = grads[row * D + c];
-      u.w[k] = values[s * D + c];
-      u.a[k] = fresh ? init_acc : accum[s * D + c];
-    }
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void adagrad_store(
-    const AdagradUnit<K>& u, float* values, float* accum, int64_t s,
-    int64_t D, int64_t c0, float lr, int lane) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int64_t c = c0 + lane + 32 * k;
-    if (c < D) {
-      const float g = u.g[k];
-      const float a = u.a[k] + g * g;
-      const float step = (lr * g) * rsqrtf(a);
-      values[s * D + c] = u.w[k] - step;
-      accum[s * D + c] = a;
-    }
-  }
-}
-
-// u-rows a K2 warp takes: 4 for rows of up to 96 columns, else 8. At
-// the training path's update shares (26-40 %) a group then holds one to
+// K2: 4 u-rows a warp for rows of up to 96 columns, else 8. At the
+// training path's update shares (26-40 %) a group then holds one to
 // three applied rows, so many warps share the card; measured on an H100
-// against groups of 32, 16 and 8 (PERF.md).
+// against groups of 32, 16 and 8 (PERF.md). A batch holds about 48
+// values per lane (3 streams of K chunks each), at least 2 units.
 template <int K>
-constexpr int kGroup = K <= 3 ? 4 : 8;
+struct AdagradOp : AdagradArgs {
+  static constexpr int kChunks = K;
+  static constexpr int kGroup = K <= 3 ? 4 : 8;
+  static constexpr int kBatch = clamp_batch(16 / K);
+  struct Unit {
+    float g[K], a[K], w[K];
+  };
 
-// Units a K2 warp loads before it computes and stores any of them: about
-// 48 values per lane (3 streams of K chunks each), at least 2, at most 8.
-template <int K>
-constexpr int kBatch = 16 / K < 2 ? 2 : (16 / K > 8 ? 8 : 16 / K);
+  __device__ __forceinline__ void begin() {}
 
-// A warp takes kGroup<K> consecutive u-rows; K = min(ceil(D/32), kMaxChunks).
+  __device__ __forceinline__ void load(Unit& u, const float* __restrict__ grads,
+                                       int64_t row, int64_t s, int64_t D,
+                                       int64_t c0, bool fresh, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = c0 + lane + 32 * k;
+      if (c < D) {
+        u.g[k] = grads[row * D + c];
+        u.w[k] = values[s * D + c];
+        u.a[k] = fresh ? init_acc : accum[s * D + c];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Unit& u, int64_t s, int64_t D,
+                                        int64_t c0, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = c0 + lane + 32 * k;
+      if (c < D) {
+        const float g = u.g[k];
+        const float a = u.a[k] + g * g;
+        const float step = (lr * g) * rsqrtf(a);
+        values[s * D + c] = u.w[k] - step;
+        accum[s * D + c] = a;
+      }
+    }
+  }
+};
+
+struct AdamArgs {
+  float* values;
+  float* m;
+  float* v;
+  const float* alpha_ptr;
+  float beta1, omb1, beta2, omb2, eps;
+  float alpha;  // *alpha_ptr, loaded by begin()
+};
+
+// K3: four streams (g, w, m, v) of K chunks a unit.
 template <int K>
+struct AdamOp : AdamArgs {
+  static constexpr int kChunks = K;
+  static constexpr int kGroup = K <= 3 ? kAdamGroupNarrow : kAdamGroupWide;
+  static constexpr int kBatch = clamp_batch(kAdamLoads / K);
+  struct Unit {
+    float g[K], w[K], m[K], v[K];
+  };
+
+  __device__ __forceinline__ void begin() { alpha = *alpha_ptr; }
+
+  __device__ __forceinline__ void load(Unit& u, const float* __restrict__ grads,
+                                       int64_t row, int64_t s, int64_t D,
+                                       int64_t c0, bool fresh, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = c0 + lane + 32 * k;
+      if (c < D) {
+        u.g[k] = grads[row * D + c];
+        u.w[k] = values[s * D + c];
+        u.m[k] = fresh ? 0.0f : m[s * D + c];
+        u.v[k] = fresh ? 0.0f : v[s * D + c];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Unit& u, int64_t s, int64_t D,
+                                        int64_t c0, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t c = c0 + lane + 32 * k;
+      if (c < D) {
+        const float g = u.g[k];
+        const float mc = beta1 * u.m[k] + omb1 * g;
+        const float vc = beta2 * u.v[k] + (omb2 * g) * g;
+        const float step = (alpha * mc) / (sqrtf(vc) + eps);
+        values[s * D + c] = u.w[k] - step;
+        m[s * D + c] = mc;
+        v[s * D + c] = vc;
+      }
+    }
+  }
+};
+
+// A warp takes Op::kGroup consecutive u-rows and applies the updated
+// ones, a batch of Op::kBatch units at a time.
+template <class Op>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    adagrad_kernel(float* __restrict__ values, float* __restrict__ accum,
-                   int64_t C, int64_t D, const int32_t* __restrict__ slots,
-                   const float* __restrict__ grads, int64_t n,
-                   const bool* __restrict__ update,
-                   const bool* __restrict__ is_new, float lr, float init_acc) {
+    apply_kernel(Op op, int64_t C, int64_t D,
+                 const int32_t* __restrict__ slots,
+                 const float* __restrict__ grads, int64_t n,
+                 const bool* __restrict__ update,
+                 const bool* __restrict__ is_new) {
+  constexpr int P = Op::kBatch;
+  constexpr int64_t kSpan = 32 * Op::kChunks;
   const int lane = threadIdx.x % 32;
   const int64_t base =
       (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32) *
-      kGroup<K>;
+      Op::kGroup;
   if (base >= n) return;  // uniform across the warp
   const int64_t row = base + lane;
   int64_t s = 0;
   bool ok = false;
   bool nw = false;
-  if (lane < kGroup<K> && row < n) {
+  if (lane < Op::kGroup && row < n) {
     s = static_cast<int64_t>(slots[row]);
     ok = (update == nullptr || update[row]) && s >= 0 && s < C;
     nw = is_new != nullptr && is_new[row];
@@ -167,16 +227,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   unsigned todo = __ballot_sync(0xffffffffu, ok);
   const unsigned fresh = __ballot_sync(0xffffffffu, nw);
   if (todo == 0) return;
+  op.begin();
   // Units in order: each applied row (set bit), each 32*K-column block.
-  // A batch of up to kBatch units is loaded, then computed and stored.
-  constexpr int P = kBatch<K>;
-  constexpr int64_t kSpan = 32 * K;
   int j = __ffs(todo) - 1;
   todo &= todo - 1;
   int64_t c0 = 0;
   bool more = true;
   while (more) {  // uniform across the warp
-    AdagradUnit<K> u[P];
+    typename Op::Unit u[P];
     int64_t us[P], uc[P];
     bool uv[P];
 #pragma unroll
@@ -185,8 +243,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       if (more) {
         us[q] = __shfl_sync(0xffffffffu, static_cast<long long>(s), j);
         uc[q] = c0;
-        adagrad_load<K>(u[q], values, accum, grads, base + j, us[q], D, c0,
-                        (fresh >> j) & 1u, init_acc, lane);
+        op.load(u[q], grads, base + j, us[q], D, c0, (fresh >> j) & 1u, lane);
         c0 += kSpan;
         if (c0 >= D) {
           c0 = 0;
@@ -201,60 +258,49 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     }
 #pragma unroll
     for (int q = 0; q < P; ++q)
-      if (uv[q]) adagrad_store<K>(u[q], values, accum, us[q], D, uc[q], lr, lane);
+      if (uv[q]) op.store(u[q], us[q], D, uc[q], lane);
   }
 }
 
-constexpr int kMaxChunks = 8;  // a K2 unit holds up to 256 columns
-
-template <int K>
-void adagrad_launch(float* values, float* accum, int64_t C1, int64_t D,
-                    const int32_t* slots, const float* grads, int64_t n,
-                    const bool* update, const bool* is_new, float lr,
-                    float init_acc, cudaStream_t stream) {
-  const int64_t warps = (n + kGroup<K> - 1) / kGroup<K>;
+template <class Op>
+void launch(const Op& op, int64_t C1, int64_t D, const int32_t* slots,
+            const float* grads, int64_t n, const bool* update,
+            const bool* is_new, cudaStream_t stream) {
+  const int64_t warps = (n + Op::kGroup - 1) / Op::kGroup;
   const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  adagrad_kernel<K><<<static_cast<unsigned int>(blocks), kWarpsPerBlock * 32,
-                      0, stream>>>(values, accum, C1 - 1, D, slots, grads, n,
-                                   update, is_new, lr, init_acc);
+  apply_kernel<Op><<<static_cast<unsigned int>(blocks), kWarpsPerBlock * 32,
+                     0, stream>>>(op, C1 - 1, D, slots, grads, n, update,
+                                  is_new);
 }
 
-__global__ void adam_kernel(float* __restrict__ values, float* __restrict__ m,
-                            float* __restrict__ v, int64_t C, int64_t D,
-                            const int32_t* __restrict__ slots,
-                            const float* __restrict__ grads, int64_t n,
-                            const bool* __restrict__ update,
-                            const bool* __restrict__ is_new,
-                            const float* __restrict__ alpha_ptr, float beta1,
-                            float omb1, float beta2, float omb2, float eps) {
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= n) return;  // uniform across the warp
-  int64_t s;
-  bool fresh;
-  if (!row_slot(slots, update, is_new, C, row, &s, &fresh)) return;
-  const int lane = threadIdx.x % 32;
-  const float alpha = *alpha_ptr;
-  float* w = values + s * D;
-  float* m_row = m + s * D;
-  float* v_row = v + s * D;
-  const float* g_row = grads + row * D;
-  for (int64_t c = lane; c < D; c += 32) {
-    const float g = g_row[c];
-    float mc = fresh ? 0.0f : m_row[c];
-    float vc = fresh ? 0.0f : v_row[c];
-    mc = beta1 * mc + omb1 * g;
-    vc = beta2 * vc + omb2 * g * g;
-    const float step = (alpha * mc) / (sqrtf(vc) + eps);
-    w[c] = w[c] - step;
-    m_row[c] = mc;
-    v_row[c] = vc;
+// Checks the shape, picks K = min(ceil(D/32), kMaxChunks) and launches
+// Op<K>; returns the cudaError_t of the launch.
+template <template <int> class Op, class Args>
+int apply(const Args& args, int64_t C1, int64_t D, const void* slots_p,
+          const void* grads_p, int64_t n, const void* update_p,
+          const void* is_new_p, void* stream_p) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (C1 < 1 || D < 1 ||
+      (n + kWarpsPerBlock - 1) / kWarpsPerBlock > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](const auto& op) {
+    launch(op, C1, D, static_cast<const int32_t*>(slots_p),
+           static_cast<const float*>(grads_p), n,
+           static_cast<const bool*>(update_p),
+           static_cast<const bool*>(is_new_p),
+           static_cast<cudaStream_t>(stream_p));
+  };
+  switch ((D + 31) / 32) {
+    case 1: go(Op<1>{args}); break;
+    case 2: go(Op<2>{args}); break;
+    case 3: go(Op<3>{args}); break;
+    case 4: go(Op<4>{args}); break;
+    case 5: go(Op<5>{args}); break;
+    case 6: go(Op<6>{args}); break;
+    case 7: go(Op<7>{args}); break;
+    default: go(Op<kMaxChunks>{args}); break;
   }
-}
-
-bool bad_shape(int64_t C1, int64_t D, int64_t n) {
-  return C1 < 1 || D < 1 ||
-         (n + kWarpsPerBlock - 1) / kWarpsPerBlock > 0x7fffffffLL;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -267,24 +313,10 @@ extern "C" int deeprec_adagrad_apply_rows(void* values, void* accum,
                                           int64_t n, const void* update,
                                           const void* is_new, float lr,
                                           float init_acc, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(C1, D, n)) return static_cast<int>(cudaErrorInvalidValue);
-  auto launch = adagrad_launch<kMaxChunks>;
-  switch ((D + 31) / 32) {
-    case 1: launch = adagrad_launch<1>; break;
-    case 2: launch = adagrad_launch<2>; break;
-    case 3: launch = adagrad_launch<3>; break;
-    case 4: launch = adagrad_launch<4>; break;
-    case 5: launch = adagrad_launch<5>; break;
-    case 6: launch = adagrad_launch<6>; break;
-    case 7: launch = adagrad_launch<7>; break;
-    default: break;
-  }
-  launch(static_cast<float*>(values), static_cast<float*>(accum), C1, D,
-         static_cast<const int32_t*>(slots), static_cast<const float*>(grads),
-         n, static_cast<const bool*>(update), static_cast<const bool*>(is_new),
-         lr, init_acc, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const AdagradArgs args{static_cast<float*>(values),
+                         static_cast<float*>(accum), lr, init_acc};
+  return apply<AdagradOp>(args, C1, D, slots, grads, n, update, is_new,
+                          stream);
 }
 
 extern "C" int deeprec_adam_apply_rows(void* values, void* m, void* v,
@@ -294,16 +326,9 @@ extern "C" int deeprec_adam_apply_rows(void* values, void* m, void* v,
                                        const void* is_new, const void* alpha,
                                        float beta1, float omb1, float beta2,
                                        float omb2, float eps, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(C1, D, n) || alpha == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  adam_kernel<<<static_cast<unsigned int>(blocks), kWarpsPerBlock * 32, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(values), static_cast<float*>(m),
-      static_cast<float*>(v), C1 - 1, D, static_cast<const int32_t*>(slots),
-      static_cast<const float*>(grads), n, static_cast<const bool*>(update),
-      static_cast<const bool*>(is_new), static_cast<const float*>(alpha),
-      beta1, omb1, beta2, omb2, eps);
-  return static_cast<int>(cudaGetLastError());
+  if (n > 0 && alpha == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const AdamArgs args{static_cast<float*>(values), static_cast<float*>(m),
+                      static_cast<float*>(v), static_cast<const float*>(alpha),
+                      beta1, omb1, beta2, omb2, eps, 0.0f};
+  return apply<AdamOp>(args, C1, D, slots, grads, n, update, is_new, stream);
 }

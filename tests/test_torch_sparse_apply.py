@@ -38,10 +38,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(C, D, n, seed, drops=True, share=0.8):
+def _case(C, D, n, seed, drops=True, share=0.8, new_share=0.3):
     """Tables [C+1, D], n unique slots in [0, C) with (when ``drops``)
     the sentinel C and two slots above it, grads, and masks; a share of
-    rows to update, or "one" for one row in each group of 32."""
+    rows to update, or "one" for one row in each group of 32, and a
+    share of fresh rows."""
     r = np.random.default_rng(seed)
     values = r.normal(size=(C + 1, D)).astype(np.float32)
     acc = r.uniform(0.1, 1.0, size=(C + 1, D)).astype(np.float32)
@@ -55,7 +56,7 @@ def _case(C, D, n, seed, drops=True, share=0.8):
         update = np.arange(n) % 32 == 7
     else:
         update = r.random(n) < share
-    is_new = r.random(n) < 0.3
+    is_new = r.random(n) < new_share
     return dict(values=values, acc=acc, m=m, v=v, slots=slots, grads=grads,
                 update=update, is_new=is_new)
 
@@ -167,8 +168,8 @@ def test_optimizer_apply_matches_jax(opt, D):
 
 # -- on the card ---------------------------------------------------------------
 
-def _kernel_vs_plain(device, opt, C, D, n, seed, share=0.8):
-    c = _case(C, D, n, seed, share=share)
+def _kernel_vs_plain(device, opt, C, D, n, seed, share=0.8, new_share=0.3):
+    c = _case(C, D, n, seed, share=share, new_share=new_share)
     if n > 3:
         if C - 1 not in c["slots"]:
             c["slots"][3] = C - 1      # the last row the kernel may write
@@ -214,6 +215,29 @@ def test_kernel_matches_plain_on_card(cuda_device, opt, D, n, share):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [1, 4, 8, 17, 64, 65, 128, 129, 256, 257])
+@pytest.mark.parametrize("new_share", [0.0, 1.0])
+def test_kernel_fresh_share_on_card(cuda_device, opt, D, new_share):
+    # No row fresh (every slot stream read) and every row fresh (none
+    # read), at 26 % and 100 % updated.
+    for share in (0.26, 1.0):
+        _kernel_vs_plain(cuda_device, opt, 5000, D, 4099, 7 * D, share,
+                         new_share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [257, 300, 513, 1000])
+@pytest.mark.parametrize("n", [3, 9, 13, 37, 1001])
+def test_kernel_ragged_and_wide_on_card(cuda_device, opt, D, n):
+    # n ragged against groups of 4 and 8 u-rows and against batches of
+    # units; rows of several 256-column units.
+    for share in (0.5, 1.0):
+        _kernel_vs_plain(cuda_device, opt, 3000, D, n, D + n, share, 0.3)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_operands(cuda_device):
     c = _t(_case(100, 8, 50, 0), cuda_device)
     with pytest.raises(TypeError):
@@ -228,3 +252,32 @@ def test_kernel_rejects_bad_operands(cuda_device):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
     sa.adagrad_apply_rows(c["values"], c["acc"], empty,
                           c["grads"][:0], 0.1)
+
+
+def test_chip_smoke_apply_bytes():
+    """The apply's bound counts 20/28 bytes per element of an applied
+    row, 16/20 for a fresh one (its slot rows are not read), nothing for
+    a dropped or filtered row, and 4 bytes of slot plus 1 per flag given
+    per u-row."""
+    import chip_smoke
+
+    C, D = 10, 3
+    slots = torch.tensor([0, 1, 2, 3, C, C + 5, -1, 4, 5], dtype=torch.int32)
+    upd = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1, 0], dtype=torch.bool)
+    is_new = torch.tensor([1, 0, 1, 1, 1, 0, 1, 0, 0], dtype=torch.bool)
+    # Applied: u-rows 0, 1, 2, 7 (3 and 8 filtered, 4-6 dropped); fresh:
+    # 0 and 2 (3, 4 and 6 are fresh but not applied).
+    applied, fresh = chip_smoke._applied(C, slots, upd, is_new)
+    assert applied.tolist() == [1, 1, 1, 0, 0, 0, 0, 1, 0]
+    assert fresh.tolist() == [1, 0, 1, 0, 0, 0, 0, 0, 0]
+    n = slots.numel()
+    assert chip_smoke._apply_bytes("adagrad", C, D, slots, upd, is_new) == (
+        D * (20 * 2 + 16 * 2) + 6 * n)
+    assert chip_smoke._apply_bytes("adam", C, D, slots, upd, is_new) == (
+        D * (28 * 2 + 20 * 2) + 6 * n)
+    # update None: every in-range slot applied (0-3, 7, 8); fresh 0, 2, 3.
+    assert chip_smoke._apply_bytes("adam", C, D, slots, None, is_new) == (
+        D * (28 * 3 + 20 * 3) + 5 * n)
+    # no is_new: nothing fresh.
+    assert chip_smoke._apply_bytes("adagrad", C, D, slots, None, None) == (
+        D * 20 * 6 + 4 * n)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time this checkout's K1 (``gather_rows``) and K2
-(``adagrad_apply_rows``) kernels against other versions of their CUDA
-sources, in turns, in one process on one CUDA card.
+"""Time this checkout's K1 (``gather_rows``), K2 (``adagrad_apply_rows``)
+and K3 (``adam_apply_rows``) kernels against other versions of their
+CUDA sources, in turns, in one process on one CUDA card.
 
 Run from the repository root:
 
@@ -13,19 +13,27 @@ Run from the repository root:
 Each other version (named by its directory) builds with this checkout's
 flags (``build.NVCC_FLAGS`` plus ``build.KERNEL_FLAGS``) and must export
 the same C entries. All versions launch through the same wrappers
-(``gather.gather_rows``, ``sparse_apply.adagrad_apply_rows``), pointed
-at one library or another. Every case first checks that the versions
-give equal results, then times them in turns, the others in the order
-given, this checkout twice, the others in reverse (each the median of
-``chip_smoke.REPS`` CUDA-event-timed calls), and reports the mean of
-each version's two times. Cases, at the main path's shapes:
+(``gather.gather_rows``, ``sparse_apply.adagrad_apply_rows``,
+``sparse_apply.adam_apply_rows``), pointed at one library or another.
+Every case first checks that the versions give equal results, then
+times them in turns, the others in the order given, this checkout
+twice, the others in reverse (each ``chip_smoke.median_ms``, device
+time), and reports the mean of each version's two times. Cases, at
+the main path's shapes:
 
 - K1 at ``chip_smoke.py`` phase 3's serving shapes (uniform slots, 90 %
   admitted, one default row), both tables, with and without the select;
 - K1 on one headline training step's own lookup operands, both tables,
   after TRAIN_STEPS training steps;
 - K2 on that step's own row gradients, both tables, and at phase 7's
-  synthetic shape (129 wide, about 87 % of rows updated).
+  synthetic shape (129 wide, about 87 % of rows updated, 20 % of them
+  fresh);
+- K3 at phase 7's synthetic shape, and on the row gradients of one
+  ``sparse_opt="adam"`` training step after phase 10's warm-up
+  (``chip_smoke.ADAM_STEPS``), both tables.
+
+Bounds are ``chip_smoke.py``'s: an apply's from its applied and fresh
+rows (``chip_smoke._apply_bytes``).
 
 One line per case goes to stdout, all of them as JSON to ``--out``.
 """
@@ -35,6 +43,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import os
 import subprocess
@@ -75,22 +84,26 @@ def build_other(src_dir: str) -> dict:
 
 @contextlib.contextmanager
 def using(libs):
-    """Point the K1 and K2 wrappers at ``libs``' C entries; None keeps
-    this checkout's."""
+    """Point the K1, K2 and K3 wrappers at ``libs``' C entries; None
+    keeps this checkout's."""
     from deeprec_tpu_torch.ops.kernels import gather
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
-    symbol = "deeprec_adagrad_apply_rows"
-    mine = (gather._kernel(), sa._kernel(symbol))
+    symbols = ("deeprec_adagrad_apply_rows", "deeprec_adam_apply_rows")
+    mine_g = gather._kernel()
+    mine = {sym: sa._kernel(sym) for sym in symbols}
     if libs is not None:
         g = libs["gather_rows"].deeprec_gather_rows
-        a = getattr(libs["sparse_apply"], symbol)
-        for fn, ref in ((g, mine[0]), (a, mine[1])):
-            fn.argtypes, fn.restype = ref.argtypes, ref.restype
-        gather._fn, sa._fns[symbol] = g, a
+        g.argtypes, g.restype = mine_g.argtypes, mine_g.restype
+        gather._fn = g
+        for sym in symbols:
+            fn = getattr(libs["sparse_apply"], sym)
+            fn.argtypes, fn.restype = mine[sym].argtypes, mine[sym].restype
+            sa._fns[sym] = fn
     try:
         yield
     finally:
-        gather._fn, sa._fns[symbol] = mine
+        gather._fn = mine_g
+        sa._fns.update(mine)
 
 
 def in_turns(versions, fn) -> dict:
@@ -130,36 +143,34 @@ def ab_gather(versions, label, values, slots, admitted=None, bank=None,
     return rec
 
 
-def ab_adagrad(versions, label, values, accum, slots, grads, upd, is_new,
-               lr, init_acc) -> dict:
+def ab_apply(versions, kind, label, values, tables, slots, grads, upd,
+             is_new, args) -> dict:
+    """K2 (``kind`` "adagrad") or K3 ("adam") of every version on copies
+    of the same inputs: equal results, then times in turns."""
     import chip_smoke
-    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
     first = None
     for _, libs in versions:
-        v, a = values.clone(), accum.clone()
+        out = [values.clone()] + [t.clone() for t in tables]
         with using(libs):
-            sa.adagrad_apply_rows(v, a, slots, grads, lr, update=upd,
-                                  is_new=is_new, init_acc=init_acc)
+            chip_smoke._apply(kind, out[0], slots, grads, upd, is_new,
+                              out[1:], args, plain=False)
         torch.cuda.synchronize()
         if first is None:
-            first = (v, a)
-        elif not (torch.equal(v, first[0]) and torch.equal(a, first[1])):
+            first = out
+        elif not all(torch.equal(a, b) for a, b in zip(out, first)):
             raise AssertionError(f"{label}: the versions differ")
-        else:
-            del v, a
-    v, a = first
-    del first
-    C = values.shape[0] - 1
-    mask = upd & (slots >= 0) & (slots < C)
+        del out
+    C, D = values.shape[0] - 1, values.shape[1]
+    applied, fresh = chip_smoke._applied(C, slots, upd, is_new)
     rec = {"case": label, "shape": list(values.shape), "n": slots.numel(),
-           "updated": int(mask.sum()),
-           **in_turns(versions, lambda: sa.adagrad_apply_rows(
-               v, a, slots, grads, lr, update=upd, is_new=is_new,
-               init_acc=init_acc)),
+           "updated": int(applied.sum()), "fresh": int(fresh.sum()),
+           **in_turns(versions, lambda: chip_smoke._apply(
+               kind, first[0], slots, grads, upd, is_new, first[1:], args,
+               plain=False)),
            "library_ms": None,
            "bound_ms": chip_smoke.bound_ms(chip_smoke._apply_bytes(
-               "adagrad", values.shape[1], mask, slots))}
-    del v, a
+               kind, C, D, slots, upd, is_new))}
+    del first
     return rec
 
 
@@ -170,7 +181,8 @@ def report(rec):
         f"runs {', '.join(f'{x:.4f}' for x in rec['runs'][k])})"
         for k, ms in rec["ms"].items())
     print(f"{rec['case']}: {rec['shape']}, n={rec['n']}"
-          + (f", {rec['updated']} updated" if "updated" in rec else "")
+          + (f", {rec['updated']} updated ({rec['fresh']} fresh)"
+             if "updated" in rec else "")
           + (f", {rec['admitted']} admitted" if "admitted" in rec else "")
           + f": {times}; bound {rec['bound_ms']:.4f} ms"
           + (f"; F.embedding {lib:.4f} ms" if lib is not None else ""),
@@ -200,50 +212,60 @@ def synthetic_gathers(versions, recs):
 
 
 def synthetic_apply(versions, recs):
-    """Phase 7's headline shape for K2: 129 wide, 90 % of rows marked
-    for update, 3 % of slots dropped."""
+    """Phase 7's headline shape for K2 and K3: 129 wide, 90 % of rows
+    marked for update, 20 % fresh, 3 % of slots dropped."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     C1, D, n = 4194305, 129, 131073
     C = C1 - 1
     values = torch.randn(C1, D, generator=gen, device=dev)
-    accum = torch.rand(C1, D, generator=gen, device=dev) + 0.1
     slots = torch.randperm(C, generator=gen, device=dev)[:n].to(torch.int32)
     k = n // 100
     slots[:k], slots[k:2 * k], slots[2 * k:3 * k] = C, C + 17, -5
     grads = torch.randn(n, D, generator=gen, device=dev)
     upd = torch.rand(n, generator=gen, device=dev) < 0.9
     is_new = torch.rand(n, generator=gen, device=dev) < 0.2
-    recs.append(ab_adagrad(versions, "K2 synthetic", values, accum, slots, grads,
-                           upd, is_new, 0.05, 0.1))
+    accum = torch.rand(C1, D, generator=gen, device=dev) + 0.1
+    recs.append(ab_apply(versions, "adagrad", "K2 synthetic", values, [accum],
+                         slots, grads, upd, is_new, (0.05, 0.1)))
     report(recs[-1])
-    del values, accum
+    del accum
+    moments = [torch.randn(C1, D, generator=gen, device=dev) * 0.1,
+               torch.rand(C1, D, generator=gen, device=dev) * 0.1]
+    alpha = torch.tensor([0.01], device=dev)
+    recs.append(ab_apply(versions, "adam", "K3 synthetic", values, moments,
+                         slots, grads, upd, is_new, (alpha, 0.9, 0.999, 1e-8)))
+    report(recs[-1])
+    del values, moments
     torch.cuda.empty_cache()
 
 
 def main_path(versions, recs):
-    """One headline training step's own K1 operands and K2 gradients."""
+    """K1 on one headline training step's own lookup operands, K2 on its
+    row gradients; K3 on the row gradients of a ``sparse_opt="adam"``
+    step, warmed as phase 10 is."""
     import chip_smoke
     from deeprec_tpu_torch import bench
-    tr = bench.build_wdl(reference_shapes=True, device="cuda")
-    bench.bench_device(tr, warmup=TRAIN_STEPS, steps=1)
-    with chip_smoke.captured_gathers() as calls:
-        gl, grads = chip_smoke._step_grads(tr, tr.next_batch())
-    for args in calls:
-        recs.append(ab_gather(versions, "K1 training lookup", *args))
-        recs[-1]["admitted"] = int(args[2].sum())
-        report(recs[-1])
-    del calls
-    for tname, g in grads.items():
-        cfg = tr.group.tables[tname]
-        lk = gl.lks[tname]
-        upd = lk.admitted & (lk.slots < cfg.capacity)
-        recs.append(ab_adagrad(
-            versions, "K2 training step", tr.ts.ev[tname].values,
-            tr.ts.slots[tname]["accum"], lk.slots, g.contiguous(), upd,
-            lk.is_new, tr.sparse_opt.learning_rate,
-            tr.sparse_opt.initial_accumulator_value))
-        report(recs[-1])
+    for kind, (warmup, steps) in (("adagrad", (TRAIN_STEPS, 1)),
+                                  ("adam", chip_smoke.ADAM_STEPS)):
+        tr = bench.build_wdl(reference_shapes=True, device="cuda",
+                             sparse_opt=kind)
+        bench.bench_device(tr, warmup=warmup, steps=steps)
+        with chip_smoke.captured_gathers() as calls:
+            gl, grads = chip_smoke._step_grads(tr, tr.next_batch())
+        if kind == "adagrad":
+            for args in calls:
+                recs.append(ab_gather(versions, "K1 training lookup", *args))
+                recs[-1]["admitted"] = int(args[2].sum())
+                report(recs[-1])
+        label = "K2" if kind == "adagrad" else "K3"
+        for ops in chip_smoke._step_applies(tr, kind, gl, grads):
+            recs.append(ab_apply(versions, kind, f"{label} training step",
+                                 *ops))
+            report(recs[-1])
+        del tr, gl, grads, calls
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main():
