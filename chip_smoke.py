@@ -53,6 +53,28 @@ non-zero:
 11. (e) the sizes of ``__graft_entry__._build`` built with the port
    alone, three steps on the card and on the CPU from the same weights;
    the losses must agree.
+12. (f) the static-bucket row (``bench.build_wdl(static_buckets=
+   True)``: two offset-coalesced matrices, 1,700,001 x 129 and 94,491 x
+   65): 30 warm-up and 30 measured steps with K1 and K2 launch counts
+   reset just before and read just after, then K1 and K2 against their
+   plain versions on one more step's own operands (no row is ever
+   fresh), timed; a 512-row request scored from the trained state
+   through K1 and through the plain gather (identical logits); a full
+   checkpoint saved and restored into fresh tables (rows and
+   accumulators equal) and served by ``ServingModel`` (identical
+   logits).
+13. (g) the dim16 row (one coalesced EV table, 17 x 2**25 rows): 10
+   warm-up and 10 measured steps, launch counts as in (f), K1 and K2 at
+   D = 17 against their plain versions on a step's operands.
+14. (h) the e2e row: a TSV of 8 x 16,384 rows written to a temporary
+   directory; its first 1,000 lines parsed by the native parser and by
+   the Python line parser (labels and ids equal, numerics within one
+   float32 ulp: the Python parser takes log1p in float32, the C++ one
+   in double, as in the JAX package); the first batch's compact pack
+   unpacked on the card equal to the full pack; then the pipeline
+   (native parse, compact pack on a prefetch thread, pinned copies,
+   headline step) timed with launch counts as in (f), and K1 and K2
+   compared on one of its batches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -96,6 +118,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak device-memory rate
 # may differ in the last bits where rsqrtf and PyTorch's rsqrt differ.
 APPLY_RTOL, APPLY_ATOL = 1e-6, 1e-7
 ADAM_STEPS = (2, 3)  # warm-up and measured steps of phase (c)
+DIM16_STEPS = (10, 10)  # warm-up and measured steps of phase (g)
+E2E_BATCHES = 8  # batches of the TSV of phase (h)
 # Card vs CPU loss of the small float32 config over three steps: GEMM
 # sums and the atomics of the rows' backward run in another order.
 # About 17x the reading on an H100 (max abs diff 5.96e-8, both
@@ -299,6 +323,10 @@ def _gather_bytes(values, slots, admitted, bank, sel) -> int:
     return (n + distinct) * D * values.element_size() + head * n
 
 
+def _pct(rec) -> str:
+    return f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound"
+
+
 def compare_gather(label: str, values, slots, admitted=None, bank=None,
                    sel=None) -> dict:
     """K1 on a lookup's own operands: equal to its plain version; median
@@ -325,7 +353,8 @@ def compare_gather(label: str, values, slots, admitted=None, bank=None,
         f"{int(admitted.sum()) if admitted is not None else slots.numel()} "
         f"admitted: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
         f"ms, F.embedding {rec['library_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms; equal to the plain version")
+        f"{rec['bound_ms']:.4f} ms ({_pct(rec)}); equal to the plain "
+        f"version")
     return rec
 
 
@@ -389,7 +418,7 @@ def phase_serving(parts, raw, ckpt_dir: str):
     from deeprec_tpu_torch.serving.processor import ServingModel
 
     group = parts["group"]
-    batch = group.pack_batch_np(raw)
+    batch = group.pack_batch_np(raw, "cpu")
     gather.launches = 0                       # the main path starts here
     t0 = time.perf_counter()
     serving = ServingModel(group, parts["apply_fn"], parts["ts_template"],
@@ -439,7 +468,7 @@ def phase_serving(parts, raw, ckpt_dir: str):
                                cpu["ts_template"], ckpt_dir)
     cpu_serving.full_update()
     small = {k: v[:SMALL] for k, v in raw.items()}
-    ref = cpu_serving.predict(cpu["group"].pack_batch_np(small))
+    ref = cpu_serving.predict(cpu["group"].pack_batch_np(small, "cpu"))
     torch.testing.assert_close(out[:SMALL].cpu(), ref, rtol=0,
                                atol=CPU_LOGIT_ATOL)
     log(f"phase 5 serving: CPU restore and scoring of {SMALL} rows agree, "
@@ -585,8 +614,8 @@ def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
             f"{rec['updated']} rows updated ({rec['fresh']} fresh): kernel "
             f"{rec['ms']:.4f} ms "
             f"({nbytes / rec['ms'] / 1e6:.1f} GB/s), plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; "
-            f"max abs err {err}")
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({_pct(rec)}); max abs err {err}")
     del kv, pv, kt, pt
     return rec
 
@@ -707,8 +736,31 @@ def _step_applies(tr, kind, gl, grads):
     return ops
 
 
-def phase_train(kind: str, label: str, warmup: int, steps: int):
-    """(b)/(c) the headline training path with ``kind`` sparse optimizer:
+def _table_shapes(tr) -> str:
+    return ", ".join(
+        f"[{cfg.capacity + 1}, {cfg.dim}] ({tr.ts.ev[t].values.numel() * 4} "
+        f"bytes)" for t, cfg in tr.group.tables.items())
+
+
+def _compare_step_kernels(tr, kind, label, batch):
+    """K1 on ``batch``'s own lookup operands and K2/K3 on its gradients,
+    each against its plain version and timed. Returns (fetch records,
+    apply records)."""
+    with captured_gathers() as calls:
+        gl, grads = _step_grads(tr, batch)
+    fetch = [compare_gather(f"{label} same lookup", *args)
+             for args in calls]
+    del calls
+    recs = [compare_apply(kind, *ops, f"{label} same gradients",
+                          time_it=True)
+            for ops in _step_applies(tr, kind, gl, grads)]
+    return fetch, recs
+
+
+def phase_train(kind: str, label: str, warmup: int, steps: int,
+                **build_kw):
+    """(b)/(c) the headline training path with ``kind`` sparse optimizer
+    ((f)/(g): another ``bench.build_wdl`` row through ``build_kw``):
     launch counts over the timed run, then K1 on one more step's own
     lookup operands and kernel vs plain applies from that step's
     gradients. Returns (trainer, run summary, apply records, fetch
@@ -718,8 +770,7 @@ def phase_train(kind: str, label: str, warmup: int, steps: int):
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
 
     t0 = time.perf_counter()
-    tr = bench.build_wdl(reference_shapes=True, device="cuda",
-                         sparse_opt=kind)
+    tr = bench.build_wdl(device="cuda", sparse_opt=kind, **build_kw)
     build_s = time.perf_counter() - t0
     kname = f"{kind}_apply_rows"
     gather.launches = 0                       # the main path starts here
@@ -730,22 +781,16 @@ def phase_train(kind: str, label: str, warmup: int, steps: int):
     if min(launches.values()) < 1:
         raise AssertionError(f"the training path did not launch every "
                              f"kernel: {launches}")
-    log(f"phase {label}: {kind} headline WDL built in {build_s:.3f} s; "
-        f"{warmup} + {steps} steps of B={bench.BATCH}: "
-        f"{out['value']:.1f} samples/s ({out['step_ms']:.3f} ms/step); "
-        f"losses {[round(x, 6) for x in out['losses']]}; n_overflow per "
-        f"step {out['n_overflow']}; launches {launches}")
+    log(f"phase {label}: {kind} {tr.metric} model built in {build_s:.3f} "
+        f"s, tables {_table_shapes(tr)}; {warmup} + {steps} steps of "
+        f"B={bench.BATCH}: {out['value']:.1f} samples/s "
+        f"({out['step_ms']:.3f} ms/step); losses "
+        f"{[round(x, 6) for x in out['losses']]}; n_overflow per step "
+        f"{out['n_overflow']}; launches {launches}")
 
     # The same gradients through the kernel and through the plain
     # version, on copies of the trained tables.
-    with captured_gathers() as calls:
-        gl, grads = _step_grads(tr, tr.next_batch())
-    fetch = [compare_gather(f"{label} same lookup", *args)
-             for args in calls]
-    del calls
-    recs = [compare_apply(kind, *ops, f"{label} same gradients",
-                          time_it=True)
-            for ops in _step_applies(tr, kind, gl, grads)]
+    fetch, recs = _compare_step_kernels(tr, kind, label, tr.next_batch())
     return tr, out, recs, fetch, launches
 
 
@@ -832,12 +877,167 @@ def phase_small():
             f"{diff}")
 
 
-def _record(name, source, replaces, launches, err, rec):
+def phase_static_serve_and_checkpoint(tr, ckpt_dir: str):
+    """(f) a 512-row request from the trained static state through K1
+    and through the plain gather; a full checkpoint round trip into
+    fresh tables; the same request served from that checkpoint."""
+    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.serving.processor import ServingModel
+    from deeprec_tpu_torch.train.checkpoint import CheckpointManager
+    from deeprec_tpu_torch.train.loop import make_eval_step
+
+    raw = tr.data.next_batch_np(wide=tr.wide)
+    req = tr.group.pack_batch_np({k: v[:512] for k, v in raw.items()},
+                                 tr.device)
+    eval_step = make_eval_step(tr.group, tr.apply_fn)
+    out = eval_step(tr.ts, req)
+    kernel_fn = gather.gather_rows
+    gather.gather_rows = gather.gather_rows_reference
+    try:
+        plain = eval_step(tr.ts, req)
+    finally:
+        gather.gather_rows = kernel_fn
+    if out.shape != (512,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"static request: bad logits {out.shape}")
+    if not torch.equal(out, plain):
+        raise AssertionError(f"static request: kernel vs plain gather, max "
+                             f"abs diff {float((out - plain).abs().max())}")
+    log("phase 12 (f): 512-row request from the trained static state: "
+        "kernel path vs plain gather, identical logits")
+
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(ckpt_dir, tr.group)
+    path = mgr.save(tr.ts)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    t0 = time.perf_counter()
+    template = tr.ts.replace(ev={}, slots=tr.group.init_optimizer(
+        tr.sparse_opt, tr.device))
+    restored = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for tname, st in tr.ts.ev.items():
+        if not (torch.equal(restored.ev[tname].values, st.values)
+                and torch.equal(restored.slots[tname]["accum"],
+                                tr.ts.slots[tname]["accum"])):
+            raise AssertionError(f"{tname}: restored static rows or "
+                                 f"accumulators differ")
+    del restored, template
+    log(f"phase 12 (f): static checkpoint of step {tr.ts.step} saved in "
+        f"{save_s:.3f} s ({nbytes} bytes), restored into fresh tables in "
+        f"{restore_s:.3f} s; rows and accumulators equal")
+    serving = ServingModel(tr.group, tr.apply_fn, tr.ts, ckpt_dir)
+    serving.full_update()
+    served = serving.predict(req)
+    if not torch.equal(served, out):
+        raise AssertionError(f"served static model: max abs diff "
+                             f"{float((served - out).abs().max())}")
+    log("phase 12 (f): ServingModel restored the static model; its scores "
+        "equal the trained state's")
+
+
+def phase_e2e(tmp: str):
+    """(h) the e2e row: TSV, parse and pack checks, the timed pipeline
+    with launch counts, and K1/K2 on one of its batches."""
+    from deeprec_tpu_torch import bench, native
+    from deeprec_tpu_torch.data import criteo
+    from deeprec_tpu_torch.embedding import variable as ev
+    from deeprec_tpu_torch.feature_column.feature_column import batch_to
+    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+
+    path = os.path.join(tmp, "criteo.tsv")
+    n_rows = E2E_BATCHES * BATCH
+    t0 = time.perf_counter()
+    bench.write_tsv(path, n_rows, criteo.SyntheticCriteo(
+        BATCH, vocab=200_000, seed=7))
+    log(f"phase 14 (h): wrote {n_rows} TSV rows ({os.path.getsize(path)} "
+        f"bytes) in {time.perf_counter() - t0:.3f} s")
+
+    with open(path) as f:
+        lines = [next(f) for _ in range(1000)]
+    py = criteo.parse_criteo_lines(lines)
+    rows, labels, dense, cats, _ = native.parse_criteo(
+        "".join(lines).encode(), 1000)
+    ulp = np.spacing(np.maximum(np.abs(py[1]), np.abs(dense[:rows])))
+    if not (rows == 1000 and np.array_equal(py[0], labels)
+            and np.array_equal(py[2], cats)
+            and bool((np.abs(py[1] - dense) <= ulp).all())):
+        raise AssertionError("native parse differs from the Python parser")
+    log(f"phase 14 (h): native parse of 1000 lines equals the Python "
+        f"parser's (labels, ids; numerics within one ulp, "
+        f"{int((py[1] != dense).sum())} of {dense.size} differ by one)")
+
+    t0 = time.perf_counter()
+    tr = bench.build_wdl(device="cuda")
+    raw = next(criteo.criteo_file_batches(path, BATCH, as_numpy=True,
+                                          wide=False, id_bits=31))
+    compact = batch_to(tr.group.pack_batch_np(raw, "cpu", compact=True),
+                       tr.device)
+    full = tr.group.pack_batch_np(raw, tr.device)
+    for tname, tcols in tr.group._columns_by_table().items():
+        a = tr.group._packed_view(compact, tname, tcols)
+        b = tr.group._packed_view(full, tname, tcols)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"{tname}: compact pack unpacks to other "
+                                 f"ids than the full pack")
+    log(f"phase 14 (h): compact pack of the first batch unpacks on the card "
+        f"to the full pack's (hi, lo) planes ({len(tr.group.tables)} "
+        f"tables); headline model built in {time.perf_counter() - t0:.3f} s")
+
+    gather.launches = 0                       # the e2e path starts here
+    sa.launches["adagrad_apply_rows"] = 0
+    out = bench.bench_e2e(tr, n_rows=n_rows, path=path)
+    launches = {"gather_rows": gather.launches,
+                "adagrad_apply_rows": sa.launches["adagrad_apply_rows"]}
+    if min(launches.values()) < 1:            # the e2e path ends here
+        raise AssertionError(f"the e2e path did not launch every kernel: "
+                             f"{launches}")
+    log(f"phase 14 (h): e2e pipeline, {out['steps']} timed steps of "
+        f"B={BATCH}: {out['value']:.1f} samples/s ({out['step_ms']:.3f} "
+        f"ms/step); losses {[round(x, 6) for x in out['losses']]}; "
+        f"n_overflow per step {out['n_overflow']}; live keys per table "
+        f"{[ev.num_live(st) for st in tr.ts.ev.values()]}; launches "
+        f"{launches}")
+    batch = batch_to(next(bench.e2e_batches(tr, path)), tr.device)
+    fetch, recs = _compare_step_kernels(tr, "adagrad", "14 (h)", batch)
+    return fetch, recs, launches
+
+
+def _record(name, source, replaces, launches, err, rec, path):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
-            "library_ms": rec.get("library_ms")}
+            "library_ms": rec.get("library_ms"), "path": path}
+
+
+def _path_records(path, launches, fetch, applies, gather_err, apply_err,
+                  kind="adagrad"):
+    """K1 and the sparse apply of one training path: launches from its
+    timed run, times and bound from its largest operands."""
+    src = "deeprec_tpu_torch/csrc/"
+    pallas = "deeprec_tpu/ops/pallas/"
+    suffix = "" if path == "headline" else f"[{path}]"
+    kname = f"{kind}_apply_rows"
+    return [
+        _record("gather_rows" + suffix, src + "gather_rows.cu",
+                pallas + "gather.py:72", launches["gather_rows"],
+                max([gather_err] + [r["max_abs_err"] for r in fetch]),
+                max(fetch, key=lambda r: r["bound_ms"]), path),
+        _record(kname + suffix, src + "sparse_apply.cu",
+                pallas + ("sparse_apply.py:113" if kind == "adagrad"
+                          else "sparse_apply.py:253"),
+                launches[kname],
+                max([apply_err] + [r["max_abs_err"] for r in applies]),
+                max(applies, key=lambda r: r["bound_ms"]), path)]
+
+
+def _release():
+    """Return the memory of dropped trainers to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -856,31 +1056,33 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
         phase_checkpoint(tr, d)
     del tr
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     tr, _, k3, _, adam_launches = phase_train("adam", "10 (c)",
                                               *ADAM_STEPS)
     del tr
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     phase_small()
-    src = "deeprec_tpu_torch/csrc/"
-    pallas = "deeprec_tpu/ops/pallas/"
-    print(json.dumps({"kernels": [
-        _record("gather_rows", src + "gather_rows.cu", pallas + "gather.py:72",
-                launches["gather_rows"], gather_err,
-                max(k1, key=lambda r: r["bound_ms"])),
-        _record("adagrad_apply_rows", src + "sparse_apply.cu",
-                pallas + "sparse_apply.py:113",
-                launches["adagrad_apply_rows"],
-                max([apply_err] + [r["max_abs_err"] for r in k2]),
-                max(k2, key=lambda r: r["bound_ms"])),
-        _record("adam_apply_rows", src + "sparse_apply.cu",
-                pallas + "sparse_apply.py:253",
-                adam_launches["adam_apply_rows"],
-                max([apply_err] + [r["max_abs_err"] for r in k3]),
-                max(k3, key=lambda r: r["bound_ms"])),
-    ]}), flush=True)
+    tr, _, s2, s1, s_launches = phase_train("adagrad", "12 (f)", 30, 30,
+                                            static_buckets=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_static_") as d:
+        phase_static_serve_and_checkpoint(tr, d)
+    del tr
+    _release()
+    tr, _, d2, d1, d_launches = phase_train(
+        "adagrad", "13 (g)", *DIM16_STEPS, reference_shapes=False)
+    del tr
+    _release()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as d:
+        e1, e2, e_launches = phase_e2e(d)
+    records = (
+        _path_records("headline", launches, k1, k2, gather_err, apply_err)
+        + _path_records("headline", adam_launches, k1, k3, gather_err,
+                        apply_err, kind="adam")[1:]
+        + _path_records("static_bucket", s_launches, s1, s2, gather_err,
+                        apply_err)
+        + _path_records("dim16", d_launches, d1, d2, gather_err, apply_err)
+        + _path_records("e2e", e_launches, e1, e2, gather_err, apply_err))
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

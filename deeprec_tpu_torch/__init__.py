@@ -13,5 +13,9 @@ serving worker) and the single-device training step (insert and
 first-occurrence dedup, the same fetch, combine, towers forward and
 backward, dense Adagrad, and the sparse Adagrad and lazy-Adam applies
 in the kernels of ``csrc/sparse_apply.cu``), with checkpoints that carry
-the optimizer state; ``bench.py`` times it.
+the optimizer state; static hash-bucket columns (offset-coalesced
+matrices fetched by the same kernel); and the input pipeline (the
+Kaggle TSV parser in ``native/host_ops.cc``, the compact wire format,
+``data/prefetch.py``). ``bench.py`` times the four rows of the JAX
+package's ``bench.py``: headline, static, dim16 and e2e.
 """

@@ -1,35 +1,61 @@
-"""Headline training benchmark of the port: WDL on synthetic Criteo.
+"""Training benchmark of the port: the four rows of ``bench.py``.
 
-Port of the headline row of ``bench.py`` (``bench.py:39-117``): the
-reference-shape WDL (per-column dims 64/128 and hash buckets from
-``modelzoo/WDL/train.py:40-96``, the wide weight in channel 0 of each
-deep table, EV tables that record no freq or version, coalesced into a
-129-wide and a 65-wide table), towers 1024/512/256 in bfloat16 over
-float32 params, ``SparseAdagrad(0.05)`` on the tables and Adagrad(0.05)
-on the towers, trained on ``SyntheticCriteo(16384, vocab=
-CRITEO_HASH_BUCKETS, seed=0)``. Run on one CUDA card::
+Port of ``bench.py``: WDL on synthetic Criteo at B = 16,384, towers
+1024/512/256 in bfloat16 over float32 params, ``SparseAdagrad(0.05)``
+on the tables and Adagrad(0.05) on the towers, in four rows:
 
-    python3 -m deeprec_tpu_torch.bench
+* ``headline``: reference shapes (per-column dims 64/128 and hash
+  buckets from ``modelzoo/WDL/train.py:40-96``, the wide weight in
+  channel 0 of each deep table), EV tables that record no freq or
+  version, coalesced into a 129-wide and a 65-wide table; ids of
+  ``SyntheticCriteo(vocab=CRITEO_HASH_BUCKETS, seed=0)``.
+* ``static``: the same shapes as static hash-bucket columns (the
+  reference's default column type): two offset-coalesced matrices,
+  1,700,001 x 129 and 94,491 x 65.
+* ``dim16``: uniform dim 16 (17 with the wide channel) over ids of a
+  200,000 vocabulary, one coalesced EV table of 2**25 rows.
+* ``e2e``: the headline model fed from a Kaggle-format TSV on disk
+  (written into a new directory under ``$TMPDIR`` from
+  ``SyntheticCriteo(vocab=200_000, seed=7)``, removed after the row):
+  native parse with 31-bit ids, ``pack_batch_np(compact=
+  True)`` on a prefetch thread, pinned host-to-device copies, step.
 
-It times 30 warm-up and then 30 measured steps over 8 pre-packed
-batches, fenced with ``torch.cuda.synchronize()``, and prints one JSON
-line: ``{"metric": "wdl_criteo_samples_per_sec", "value", "unit",
-"device"}``. The static-bucket, dim16 and end-to-end rows of
-``bench.py`` are not ported yet.
+Run on one CUDA card::
+
+    python3 -m deeprec_tpu_torch.bench [headline|static|dim16|e2e|all]
+        [--out PATH]
+
+A device row times 30 warm-up and then 30 measured steps over 8
+pre-packed batches, fenced with ``torch.cuda.synchronize()``; the e2e
+row times every full batch of the file after one warm-up batch. Each
+row prints one JSON line (``metric``, ``value``, ``unit``, ``device``,
+``batch``, ``step_ms``); with no argument the headline row prints
+``{"metric", "value", "unit", "device"}``. ``all`` runs each row in a
+process of its own and prints their lines. ``--out`` also writes the
+rows, as JSON, to that path; nothing else is written but the TSV.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
+import subprocess
+import sys
+import tempfile
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from deeprec_tpu_torch import config as cfglib
-from deeprec_tpu_torch.data.criteo import CRITEO_HASH_BUCKETS, SyntheticCriteo
+from deeprec_tpu_torch.data.criteo import (CRITEO_HASH_BUCKETS,
+                                           SyntheticCriteo,
+                                           criteo_file_batches)
+from deeprec_tpu_torch.data.prefetch import PrefetchIterator
 from deeprec_tpu_torch.feature_column.feature_column import EmbeddingGroup
 from deeprec_tpu_torch.layers.core import init_dense
 from deeprec_tpu_torch.models import wdl
@@ -90,20 +116,23 @@ def _assemble(cols, hidden, dtype, device, sparse_opt: str, data, *,
 
 
 def build_wdl(reference_shapes: bool = True, device="cuda",
-              sparse_opt: str = "adagrad") -> Trainer:
+              sparse_opt: str = "adagrad",
+              static_buckets: bool = False) -> Trainer:
     """The ``bench.py`` WDL at B = 16,384: reference shapes (the
-    headline), or uniform dim 16 over ids of a 200,000 vocabulary.
-    ``sparse_opt``: "adagrad" (lr 0.05, the headline) or "adam"
-    (``SparseAdam`` defaults)."""
+    headline; with ``static_buckets``, the static row), or uniform dim
+    16 over ids of a 200,000 vocabulary. ``sparse_opt``: "adagrad" (lr
+    0.05, the headline) or "adam" (``SparseAdam`` defaults)."""
     evo = cfglib.EmbeddingVariableOption(record_freq=False,
                                          record_version=False)
     cols = wdl.criteo_columns(embedding_dim=16, capacity=1 << 20,
                               reference_shapes=reference_shapes,
-                              wide_in_deep=True, ev_option=evo)
+                              wide_in_deep=True, ev_option=evo,
+                              static_buckets=static_buckets)
     data = SyntheticCriteo(
         BATCH, vocab=CRITEO_HASH_BUCKETS if reference_shapes else 200_000,
         seed=0)
-    metric = ("wdl_criteo_samples_per_sec" if reference_shapes
+    metric = ("wdl_static_bucket_samples_per_sec" if static_buckets
+              else "wdl_criteo_samples_per_sec" if reference_shapes
               else "wdl_dim16_samples_per_sec")
     return _assemble(cols, (1024, 512, 256), torch.bfloat16, device,
                      sparse_opt, data, wide=False, metric=metric)
@@ -151,14 +180,130 @@ def bench_device(trainer: Trainer | None = None,
     batch = batches[0]["label"].shape[0]
     return {"metric": tr.metric, "value": batch * steps / dt,
             "unit": "samples/s", "device": torch.cuda.get_device_name(0),
-            "step_ms": dt / steps * 1e3, "losses": step_losses,
+            "batch": batch, "step_ms": dt / steps * 1e3,
+            "losses": step_losses,
             "n_overflow": [int(m["n_overflow"]) for m in metrics]}
 
 
-def main():
-    out = bench_device()
-    print(json.dumps({k: out[k] for k in ("metric", "value", "unit",
-                                          "device")}), flush=True)
+def write_tsv(path: str, n_rows: int, data: SyntheticCriteo) -> None:
+    """Synthetic Criteo-format TSV (label \\t 13 ints \\t 26 hex ids) of
+    ``data``'s draws, as ``bench.py``'s ``_write_tsv`` writes it."""
+    with open(path, "w") as f:
+        remaining = n_rows
+        while remaining > 0:
+            B = min(remaining, 65536)
+            ints, cats = data._draw(B)
+            p = 1.0 / (1.0 + np.exp(-data.logits(ints, cats)))
+            labels = (np.random.default_rng(remaining).random(B) < p
+                      ).astype(np.int32)
+            iv = np.char.mod("%d", (ints * 10).astype(np.int64))
+            cv = np.char.mod("%x", cats)
+            rows = np.concatenate(
+                [labels.astype(str)[:, None], iv, cv], axis=1)
+            f.write("\n".join("\t".join(r) for r in rows) + "\n")
+            remaining -= B
+
+
+def e2e_batches(tr: Trainer, path: str):
+    """The e2e row's input pipeline up to the card: full batches of the
+    file, parsed natively with 31-bit ids (so every id plane ships as
+    ``CompactIds``) and no ``C*_wide`` columns, packed compact on the
+    host."""
+    for b in criteo_file_batches(path, BATCH, as_numpy=True, wide=False,
+                                 id_bits=31):
+        if b["label"].shape[0] == BATCH:
+            yield tr.group.pack_batch_np(b, "cpu", compact=True)
+
+
+def bench_e2e(trainer: Trainer | None = None, n_rows: int = 600_000,
+              path: str | None = None) -> dict:
+    """End to end: disk TSV -> native parse -> compact host pack (on a
+    prefetch thread) -> pinned, asynchronous host-to-device copy ->
+    headline training step. One warm-up batch, then every other full
+    batch of the file is timed. Without ``path``, a TSV of ``n_rows``
+    rows is written into a new temporary directory and removed after
+    the run; a given ``path`` is read as it is."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_e2e needs a CUDA card")
+    tr = trainer if trainer is not None else build_wdl()
+    if path is None:
+        with tempfile.TemporaryDirectory(prefix="deeprec_torch_e2e_") as d:
+            path = os.path.join(d, "criteo.tsv")
+            write_tsv(path, n_rows, SyntheticCriteo(BATCH, vocab=200_000,
+                                                    seed=7))
+            return bench_e2e(tr, path=path)
+    it = PrefetchIterator(lambda: e2e_batches(tr, path), buffer_size=4,
+                          device=tr.device)
+    try:
+        ts, m = tr.step(tr.ts, next(it))
+        float(m["loss"])
+        metrics = []
+        t0 = time.perf_counter()
+        for b in it:
+            ts, m = tr.step(ts, b)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        it.close()
+    tr.ts = ts
+    n_steps = len(metrics)
+    step_losses = [float(m["loss"]) for m in metrics]
+    if not n_steps or not all(math.isfinite(x) for x in step_losses):
+        raise FloatingPointError(f"e2e: {n_steps} steps, losses "
+                                 f"{step_losses}")
+    return {"metric": "wdl_e2e_pipeline_samples_per_sec",
+            "value": BATCH * n_steps / dt, "unit": "samples/s",
+            "device": torch.cuda.get_device_name(0), "batch": BATCH,
+            "step_ms": dt / n_steps * 1e3, "steps": n_steps,
+            "losses": step_losses,
+            "n_overflow": [int(m["n_overflow"]) for m in metrics]}
+
+
+ROWS = {
+    "headline": lambda: bench_device(build_wdl()),
+    "static": lambda: bench_device(build_wdl(static_buckets=True)),
+    "dim16": lambda: bench_device(build_wdl(reference_shapes=False)),
+    "e2e": bench_e2e,
+}
+LINE_KEYS = ("metric", "value", "unit", "device", "batch", "step_ms")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python3 -m deeprec_tpu_torch.bench",
+        description="Time the bench.py rows on one CUDA card.")
+    ap.add_argument("row", nargs="?", choices=[*ROWS, "all"])
+    ap.add_argument("--out", help="also write the rows as JSON here")
+    args = ap.parse_args(argv)
+    if args.row is None:
+        out = bench_device()
+        rows = [{k: out[k] for k in LINE_KEYS[:4]}]
+        print(json.dumps(rows[0]), flush=True)
+    elif args.row != "all":
+        out = ROWS[args.row]()
+        rows = [{k: out[k] for k in LINE_KEYS}]
+        print(json.dumps(rows[0]), flush=True)
+    else:
+        # One process per row: each row's tables are gigabytes, and a
+        # fresh process starts each from an empty card.
+        rows = []
+        for row in ROWS:
+            r = subprocess.run(
+                [sys.executable, "-m", "deeprec_tpu_torch.bench", row],
+                capture_output=True, text=True,
+                cwd=os.path.dirname(os.path.dirname(os.path.abspath(
+                    __file__))))
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("{")]
+            if r.returncode != 0 or not lines:
+                raise RuntimeError(f"row {row} failed ({r.returncode}):\n"
+                                   f"{r.stderr[-2000:]}")
+            rows.append(json.loads(lines[-1]))
+            print(lines[-1], flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"rows": rows}, f, indent=1)
 
 
 if __name__ == "__main__":

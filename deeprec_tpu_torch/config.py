@@ -2,8 +2,8 @@
 
 Port of ``deeprec_tpu/config.py``: the same frozen dataclasses, with
 ``TableConfig.dtype`` a ``torch.dtype``. Only the options the ported
-serving and training paths honour are carried; eviction, static
-buckets, adaptive and dynamic-dimension hot tables are not ported yet.
+serving and training paths honour are carried; eviction, adaptive and
+dynamic-dimension hot tables are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ class EmbeddingVariableOption:
 @dataclasses.dataclass(frozen=True)
 class TableConfig:
     """Static configuration of one embedding table. ``capacity`` must
-    be a power of two: the hash table masks rather than mods."""
+    be a power of two (the hash table masks rather than mods), except
+    for a static hash-bucket table, where it is the bucket count."""
 
     name: str
     dim: int
@@ -80,10 +81,26 @@ class TableConfig:
     # reads ``1 + #(thresholds <= freq)`` of them, the rest are zero.
     block_num: int = 1
     dyn_dim_thresholds: tuple = ()
+    # Static hash-bucket table (``categorical_column_with_hash_bucket``
+    # + ``embedding_column``, the reference's default column type): a
+    # full [capacity, dim] matrix initialized at creation, addressed by
+    # ``offset + id mod buckets`` from the group transform; no hash
+    # table, admission, eviction or metadata.
+    static_buckets: bool = False
 
     def __post_init__(self):
         if self.dim <= 0:
             raise ValueError(f"table {self.name}: dim must be positive")
+        if self.static_buckets:
+            if self.capacity < 1:
+                raise ValueError(
+                    f"table {self.name}: static bucket count must be "
+                    "positive")
+            if self.block_num > 1:
+                raise ValueError(
+                    f"table {self.name}: static buckets cannot combine "
+                    "with dynamic-dim embedding")
+            return
         if self.capacity < 1 or self.capacity & (self.capacity - 1):
             raise ValueError(
                 f"table {self.name}: capacity {self.capacity} must be a "

@@ -1,9 +1,9 @@
-"""Synthetic Criteo stream and batch helpers, numpy only.
+"""Synthetic Criteo stream, Kaggle TSV parsing and batch helpers.
 
-Port of the generator half of ``deeprec_tpu/data/criteo.py``: the same
-seed draws the same ids, numerics and labels as the JAX package. File
-parsing (``parse_criteo_lines``, ``criteo_file_batches``) is not
-ported yet.
+Port of ``deeprec_tpu/data/criteo.py`` for the generator
+(``SyntheticCriteo``: the same seed draws the same ids, numerics and
+labels as the JAX package) and the file reader (``parse_criteo_lines``,
+``criteo_file_batches``: the same file gives the same batches).
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from deeprec_tpu_torch.feature_column.feature_column import SparseIds
+
+_MASK64 = (1 << 64) - 1
+_MASK40 = (1 << 40) - 1
+_HEX = frozenset("0123456789abcdefABCDEF")
 
 NUM_INT = 13
 NUM_CAT = 26
@@ -48,6 +52,123 @@ def batch_np_dict(labels, ints, cats, wide: bool = True) -> Dict:
         if wide:
             batch[f"C{i+1}_wide"] = ids
     return batch
+
+
+def _with_sparse_ids(batch: Dict, device) -> Dict:
+    """A ``batch_np_dict`` batch with each sparse column as ``SparseIds``
+    on ``device``."""
+    return {k: (SparseIds.from_numpy(v, device) if k.startswith("C") else v)
+            for k, v in batch.items()}
+
+
+def _hash_token(token: str) -> int:
+    """FNV-1a + splitmix64 of a token's UTF-8 bytes, as uint64: the
+    host parser's hash of a non-hex token (``parse_cat_token`` in
+    ``native/host_ops.cc``)."""
+    h = 0xCBF29CE484222325
+    for c in token.encode():
+        h = ((h ^ c) * 0x100000001B3) & _MASK64
+    h = (h + 0x9E3779B97F4A7C15) & _MASK64
+    h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return h ^ (h >> 31)
+
+
+def parse_criteo_lines(lines, hash_mod: Optional[int] = None):
+    """Parse raw Kaggle TSV lines -> (labels, ints, cats int64), in
+    Python.
+
+    Missing ints read 0; a categorical hex token is its value masked to
+    40 bits (any other token is hashed), plus a per-field offset
+    ``i << 40``; ints are log-normalized as the modelzoo does.
+    """
+    B = len(lines)
+    labels = np.zeros((B,), np.float32)
+    ints = np.zeros((B, NUM_INT), np.float32)
+    cats = np.zeros((B, NUM_CAT), np.int64)
+    for r, line in enumerate(lines):
+        parts = line.rstrip("\n").split("\t")
+        labels[r] = float(parts[0] or 0)
+        for i in range(NUM_INT):
+            v = parts[1 + i] if 1 + i < len(parts) else ""
+            ints[r, i] = float(v) if v else 0.0
+        for i in range(NUM_CAT):
+            v = parts[1 + NUM_INT + i] if 1 + NUM_INT + i < len(parts) else ""
+            if not v:
+                h = 0
+            elif all(c in _HEX for c in v):
+                h = int(v, 16) & _MASK40
+            else:
+                h = _hash_token(v) & _MASK40
+            if hash_mod:
+                h %= hash_mod
+            cats[r, i] = h + (i << 40)
+    ints = np.sign(ints) * np.log1p(np.abs(ints))
+    return labels, ints, cats
+
+
+def criteo_file_batches(path: str, batch_size: int,
+                        hash_mod: Optional[int] = None,
+                        use_native: bool = True,
+                        as_numpy: bool = False,
+                        wide: bool = True,
+                        id_bits: Optional[int] = None,
+                        device="cuda") -> Iterator[Dict]:
+    """Stream batches from a Kaggle-format TSV file; the last batch may
+    be short.
+
+    ``use_native`` (which ``hash_mod`` must leave unset) parses with the
+    port's C++ parser (``native.parse_criteo``); a failed build raises.
+    ``use_native=False`` runs :func:`parse_criteo_lines`. ``as_numpy``
+    keeps batches as raw numpy (``batch_np_dict``) for
+    ``EmbeddingGroup.pack_batch_np``; otherwise sparse columns become
+    ``SparseIds`` on ``device``. ``id_bits`` keeps the low ``id_bits``
+    bits of each id, which also drops the per-field offsets: with 31,
+    every id fits in int32 and ``pack_batch_np(compact=True)`` ships
+    half-width id planes.
+    """
+    def mk(labels, dense, cats):
+        if id_bits is not None:
+            cats = np.asarray(cats) & np.int64((1 << id_bits) - 1)
+        batch = batch_np_dict(labels, dense, cats, wide=wide)
+        return batch if as_numpy else _with_sparse_ids(batch, device)
+
+    if use_native:
+        if hash_mod is not None:
+            raise ValueError("the native parser takes no hash_mod; pass "
+                             "use_native=False")
+        from deeprec_tpu_torch import native
+        tail = b""
+        with open(path, "rb") as f:
+            while True:
+                chunk = f.read(1 << 22)
+                if not chunk:
+                    break
+                data = tail + chunk
+                off = 0
+                while True:
+                    rows, labels, dense, cats, consumed = \
+                        native.parse_criteo(data[off:], batch_size)
+                    if rows < batch_size:
+                        break
+                    yield mk(labels, dense, cats)
+                    off += consumed
+                tail = data[off:]
+        if tail:
+            rows, labels, dense, cats, _ = native.parse_criteo(
+                tail if tail.endswith(b"\n") else tail + b"\n", batch_size)
+            if rows:
+                yield mk(labels[:rows], dense[:rows], cats[:rows])
+        return
+    buf = []
+    with open(path) as f:
+        for line in f:
+            buf.append(line)
+            if len(buf) == batch_size:
+                yield mk(*parse_criteo_lines(buf, hash_mod))
+                buf = []
+    if buf:
+        yield mk(*parse_criteo_lines(buf, hash_mod))
 
 
 class SyntheticCriteo:
@@ -126,11 +247,10 @@ class SyntheticCriteo:
         cats = cats + np.arange(NUM_CAT, dtype=np.int64)[None, :] * (1 << 40)
         return batch_np_dict(labels, ints, cats, wide=wide)
 
-    def next_batch(self) -> Dict:
-        """The next batch with ``SparseIds`` (CPU tensors) per sparse
+    def next_batch(self, device="cuda") -> Dict:
+        """The next batch with ``SparseIds`` on ``device`` per sparse
         column, the JAX package's ``next_batch`` layout."""
-        return {k: (SparseIds.from_numpy(v) if k.startswith("C") else v)
-                for k, v in self.next_batch_np().items()}
+        return _with_sparse_ids(self.next_batch_np(), device)
 
     def __iter__(self) -> Iterator[Dict]:
         while True:

@@ -62,13 +62,20 @@ def bag_lookup_train(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
                      ids_lo, global_step: int, salt: int = 0,
                      unique_budget=None) -> tuple[ev.EVState, BagLookup]:
     """Training lookup for one padded-dense sparse feature [B, L]
-    through :func:`variable.lookup_train_occ`; ``state`` is updated in
+    through :func:`variable.lookup_train_occ` (a static table:
+    :func:`variable.lookup_train_static`); ``state`` is updated in
     place."""
+    B, L = ids_hi.shape
+    mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
+    if cfg.static_buckets:
+        state, occ = ev.lookup_train_static(
+            cfg, state, ids_hi.reshape(-1), ids_lo.reshape(-1), global_step,
+            budget=unique_budget)
+        return state, BagLookup(lk=occ.lk, inverse=occ.inverse.reshape(B, L),
+                                mask=mask, n_overflow=occ.n_overflow)
     if isinstance(cfg.ev_option.filter_option, cfglib.CBFFilter):
         raise NotImplementedError(
             f"table {cfg.name}: the sorted CBF training lookup is not ported")
-    B, L = ids_hi.shape
-    mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
     state, occ = ev.lookup_train_occ(
         cfg, state, ids_hi.reshape(-1), ids_lo.reshape(-1), global_step,
         salt=salt, budget=unique_budget)

@@ -5,9 +5,10 @@ read-only ``lookup`` (hash find, then the row fetch with default select
 in one ``gather_rows`` kernel), the sort-free training lookup
 ``lookup_train_occ`` (insert, first-occurrence dedup, budget compaction,
 row init, metadata, admission and the same fused fetch), and the
-4-tensor checkpoint export/import. Eviction (``shrink``,
-``delete_keys``) and the sorted CBF path (``lookup_train``) are not
-ported yet.
+4-tensor checkpoint export/import; and the static hash-bucket table
+(``create``'s full matrix, ``lookup_train_static``, ``lookup_static``,
+row-indexed export/import). Eviction (``shrink``, ``delete_keys``) and
+the sorted CBF path (``lookup_train``) are not ported yet.
 
 Row arrays have ``capacity + 1`` rows; row ``capacity`` is the overflow
 sentinel, stays zero and is never written. The JAX package returns new
@@ -75,9 +76,40 @@ def _check_ported(cfg: cfglib.TableConfig):
             f"({ev.storage_type.value}) is not ported")
 
 
+# Rows of a static matrix drawn per init_rows call: the hash grid of a
+# chunk is int64 [rows, dim], so the 1.7M x 129 reference matrix is made
+# in pieces of ~70 MB rather than in several GB of intermediates.
+_STATIC_INIT_ROWS = 1 << 16
+
+
+def _create_static(cfg: cfglib.TableConfig, device, salt: int, bank):
+    """Static hash-bucket table: the full [N, dim] matrix drawn up front
+    (row r is the initializer's draw for the pseudo-id (7777 + salt,
+    r)), a zero sentinel row N, and 1-element dummy metadata and hash
+    table, as in the JAX package."""
+    N, dim = cfg.capacity, cfg.dim
+    values = torch.zeros((N + 1, dim), dtype=cfg.dtype, device=device)
+    for start in range(0, N, _STATIC_INIT_ROWS):
+        end = min(start + _STATIC_INIT_ROWS, N)
+        row_lo = torch.arange(start, end, dtype=torch.int32, device=device)
+        row_hi = torch.full_like(row_lo, 7777 + salt)
+        values[start:end] = srand.init_rows(
+            cfg.initializer, row_hi, row_lo, dim, cfg.init_scale,
+            salt=salt).to(cfg.dtype)
+    return EVState(
+        table=ht.create(1, device),
+        values=values,
+        freqs=torch.zeros((1,), dtype=torch.int32, device=device),
+        versions=torch.full((1,), -1, dtype=torch.int32, device=device),
+        default_bank=bank.to(cfg.dtype),
+        bloom=torch.zeros((1,), dtype=torch.int32, device=device),
+    )
+
+
 def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
-    """Empty table on ``device``. ``salt`` decorrelates the default
-    bank across tables, as in the JAX package."""
+    """Empty table on ``device`` (a static table: its full initialized
+    matrix). ``salt`` decorrelates the default bank and a static
+    matrix's draws across tables, as in the JAX package."""
     _check_ported(cfg)
     capacity, dim = cfg.capacity, cfg.dim
     dvd = max(1, cfg.ev_option.default_value_dim)
@@ -90,6 +122,8 @@ def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
     else:
         # Random initializers: unseen keys read zeros.
         bank = torch.zeros((dvd, dim), dtype=torch.float32, device=device)
+    if cfg.static_buckets:
+        return _create_static(cfg, device, salt, bank)
     return EVState(
         table=ht.create(capacity, device),
         values=torch.zeros((capacity + 1, dim), dtype=cfg.dtype,
@@ -138,6 +172,36 @@ def _default_sel(state: EVState, qhi, qlo):
     bank row itself, in the same pass as the table rows."""
     dvd = state.default_bank.shape[0]
     return None if dvd == 1 else keylib.mod_of(qhi, qlo, dvd)
+
+
+def _compact(rep, rep_token, is_real, tokens, U: int):
+    """Compact the representatives (``rep``; ``rep_token``: each
+    token's representative; ``tokens``: ``arange(n)`` int32) to ``U``
+    u-rows by cumsum ranks. Returns
+    ``pick(a, fill)`` (the u-rows' entries of a per-token array, padded
+    with ``fill`` to U + 1), ``inverse`` [n] int64 in [0, U] (U: padding
+    or beyond the budget) and ``n_overflow``, the representatives beyond
+    the budget."""
+    n, dev = rep.shape[0], rep.device
+    # pos[t] is token t's rank among representatives. Tokens outside the
+    # budget write entry U of u_of, which is sliced off (the JAX package
+    # drops them with an out-of-range index).
+    pos = torch.cumsum(rep.to(torch.int32), 0, dtype=torch.int32) - 1
+    in_budget = rep & (pos < U)
+    u_of = torch.full((U + 1,), n, dtype=torch.int32, device=dev)
+    u_of[torch.where(in_budget, pos, U).to(torch.int64)] = tokens
+    u_idx = u_of[:U]
+    upad = u_idx >= n
+    safe_u = torch.clamp(u_idx, max=n - 1).to(torch.int64)
+    prep = pos[torch.clamp(rep_token, max=n - 1).to(torch.int64)]
+    inverse = torch.where(is_real & (prep < U), prep, U).to(torch.int64)
+    n_overflow = torch.clamp(rep.sum(dtype=torch.int32) - U, min=0)
+
+    def pick(a, fill):
+        return torch.cat([torch.where(upad, fill, a[safe_u]),
+                          torch.full((1,), fill, dtype=a.dtype, device=dev)])
+
+    return pick, inverse, n_overflow
 
 
 def _init_fresh(cfg: cfglib.TableConfig, values, fresh, slots, qhi, qlo,
@@ -212,26 +276,8 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         u_new = pad(is_new, False)
         n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     else:
-        # Compact representatives to U: pos[t] is token t's rank among
-        # representatives. Tokens outside the budget write slot U of
-        # u_of, which is sliced off.
-        pos = torch.cumsum(rep.to(torch.int32), 0, dtype=torch.int32) - 1
-        in_budget = rep & (pos < U)
-        u_of = torch.full((U + 1,), n, dtype=torch.int32, device=dev)
-        u_of[torch.where(in_budget, pos, U).to(torch.int64)] = tokens
-        u_idx = u_of[:U]
-        upad = u_idx >= n
-        safe_u = torch.clamp(u_idx, max=n - 1).to(torch.int64)
-        prep = pos[torch.clamp(rep_token, max=n - 1).to(torch.int64)]
-        inverse = torch.where(is_real & (prep < U), prep, U).to(torch.int64)
-        n_rep = rep.sum(dtype=torch.int32)
-        n_overflow = torch.clamp(n_rep - U, min=0)
-
-        def pick(a, fill):
-            return torch.cat([torch.where(upad, fill, a[safe_u]),
-                              torch.full((1,), fill, dtype=a.dtype,
-                                         device=dev)])
-
+        pick, inverse, n_overflow = _compact(rep, rep_token, is_real,
+                                             tokens, U)
         uhi = pick(qhi, keylib.EMPTY_HI)
         ulo = pick(qlo, keylib.EMPTY_LO)
         uslots = pick(slots, capacity)
@@ -291,6 +337,57 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         inverse=inverse, n_overflow=n_overflow + n_table_overflow)
 
 
+def lookup_train_static(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
+                        global_step: int,
+                        budget: Optional[int] = None
+                        ) -> tuple[EVState, OccLookup]:
+    """Training lookup of a static hash-bucket table, whose ids the
+    group transform already mapped to rows (``lo = offset + id mod
+    N``, ``hi = 0``): dedup by the first occurrence of each row (a
+    scatter-min over N + 1 entries), compaction of the representatives
+    to the budget ``U`` by cumsum ranks (``budget=None``: ``U = n``),
+    and the row fetch through the ``gather_rows`` kernel. No probe, no
+    insert, no admission and no metadata: ``state`` is returned as it
+    came, every row is an old one (``is_new`` all False) and the rows
+    inside the table are admitted."""
+    N = cfg.capacity
+    n = qhi.shape[0]
+    U = n if budget is None else min(budget, n)
+    dev = qhi.device
+    is_real = qhi != keylib.EMPTY_HI
+    tokens = torch.arange(n, dtype=torch.int32, device=dev)
+    slots = torch.where(is_real, qlo, N)
+    slot_d = slots.to(torch.int64)
+
+    first = torch.full((N + 1,), n, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, slot_d, torch.where(is_real, tokens, n),
+                          "amin", include_self=True)
+    rep_token = first[slot_d]
+    rep = is_real & (rep_token == tokens)
+    pick, inverse, n_overflow = _compact(rep, rep_token, is_real,
+                                             tokens, U)
+    uhi = pick(qhi, keylib.EMPTY_HI)
+    ulo = pick(qlo, keylib.EMPTY_LO)
+    uslots = pick(slots, N)
+    rows = gather.gather_rows(state.values, uslots)
+    lk = LookupResult(
+        slots=uslots, rows=rows, admitted=uslots < N,
+        is_new=torch.zeros(uslots.shape, dtype=torch.bool, device=dev),
+        prev_versions=torch.full(uslots.shape, global_step,
+                                 dtype=torch.int32, device=dev),
+        qhi=uhi, qlo=ulo)
+    return state, OccLookup(lk=lk, inverse=inverse, n_overflow=n_overflow)
+
+
+def lookup_static(cfg: cfglib.TableConfig, state: EVState, qhi,
+                  qlo) -> torch.Tensor:
+    """Inference lookup of a static table (rows in ``qlo``; padding
+    reads the zero sentinel row) through the ``gather_rows`` kernel."""
+    N = cfg.capacity
+    return gather.gather_rows(state.values,
+                              torch.where(qhi != keylib.EMPTY_HI, qlo, N))
+
+
 def _dyn_dim_mask(cfg: cfglib.TableConfig, rows, freqs_rows):
     """Dynamic-dimension EV: zero the blocks a key's frequency has not
     yet unlocked."""
@@ -312,6 +409,8 @@ def lookup(cfg: cfglib.TableConfig, state: EVState, qhi, qlo) -> torch.Tensor:
     ``_default_rows``; here it is the kernel's fused select, and a
     single default row is read in place rather than gathered).
     Returns rows [n, dim]."""
+    if cfg.static_buckets:
+        return lookup_static(cfg, state, qhi, qlo)
     capacity = cfg.capacity
     slots = ht.find(state.table, qhi, qlo, max_probes=cfg.max_probes)
     admitted = slots < capacity
@@ -339,7 +438,14 @@ def num_live(state: EVState) -> int:
 
 def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarray]:
     """Host snapshot of live rows: keys/values/freqs/versions, in slot
-    order."""
+    order. A static table exports every row, keyed by its row index
+    (its id space is its row space)."""
+    if cfg.static_buckets:
+        N = cfg.capacity
+        return {"keys": np.arange(N, dtype=np.int64),
+                "values": state.values[:N].cpu().numpy(),
+                "freqs": np.zeros((N,), np.int32),
+                "versions": np.zeros((N,), np.int32)}
     idx = torch.nonzero(ht.live_mask(state.table)).reshape(-1)
     pair = state.table.key_pair[idx].cpu().numpy()
     return {
@@ -360,8 +466,13 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
     ``extra_targets``: further row-aligned ``[C+1, ...]`` tensors (an
     optimizer's slot rows) written at the same slots, in place, from
     ``arrays["slot/<name>"]``. Returns ``state``, or ``(state,
-    extra_targets)`` when they are given."""
+    extra_targets)`` when they are given.
+
+    A static table takes the keys as row indices and assigns those
+    rows (one partition; keys outside ``[0, N)`` are dropped)."""
     ids = np.asarray(arrays["keys"], np.int64)
+    if cfg.static_buckets:
+        return _import_static(cfg, state, ids, arrays, extra_targets)
     vals = np.asarray(arrays["values"])
     freqs = np.asarray(arrays["freqs"]).astype(np.int32)
     versions = np.asarray(arrays["versions"]).astype(np.int32)
@@ -393,6 +504,24 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
         put(state.versions, versions)
         for name, src in extras.items():
             put(extra_targets[name], src)
+    if extra_targets is not None:
+        return state, extra_targets
+    return state
+
+
+def _import_static(cfg: cfglib.TableConfig, state: EVState, ids: np.ndarray,
+                   arrays: dict[str, np.ndarray],
+                   extra_targets: Optional[dict[str, torch.Tensor]]):
+    dev = state.values.device
+    ok = (ids >= 0) & (ids < cfg.capacity)
+    idx = torch.from_numpy(ids[ok]).to(dev)
+
+    def put(dst, src):
+        dst[idx] = torch.from_numpy(np.asarray(src)[ok]).to(dev, dst.dtype)
+
+    put(state.values, arrays["values"])
+    for name, dst in (extra_targets or {}).items():
+        put(dst, arrays[f"slot/{name}"])
     if extra_targets is not None:
         return state, extra_targets
     return state

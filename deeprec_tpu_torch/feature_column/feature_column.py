@@ -1,20 +1,22 @@
 """Feature columns and the embedding group.
 
 Port of ``deeprec_tpu/feature_column/feature_column.py``: columns,
-unsharded ``EmbeddingGroup`` construction with coalescing (members of
-one table signature share a physical table, told apart by XOR salts on
-both id halves), id transforms, host-side batch packing, state and
-optimizer-slot creation, and the single-device training side: the
-per-table training lookup with its unique budget, the fused combine
-and the sparse optimizer apply.
+unsharded ``EmbeddingGroup`` construction with coalescing (EV tables of
+one signature share a physical table, told apart by XOR salts on both
+id halves; static hash-bucket tables of one dim class share a matrix,
+told apart by row offsets), id transforms, host-side batch packing
+with the full and the compact wire format, state and optimizer-slot
+creation, and the single-device training side: the per-table training
+lookup with its unique budget, the fused combine and the sparse
+optimizer apply.
 
 Batch convention:
   * numeric column ``name`` -> float32 [B] or [B, k]
   * sparse column ``name``  -> ``SparseIds(hi [B, L], lo [B, L])``,
     padded with the EMPTY sentinel id.
 
-Not ported yet: sharded placement, static-bucket, adaptive, sequence,
-weighted and dyn-dim hot columns, ``CompactIds``.
+Not ported yet: sharded placement, adaptive, sequence, weighted and
+dyn-dim hot columns.
 """
 
 from __future__ import annotations
@@ -52,20 +54,31 @@ class SparseIds(NamedTuple):
     lo: torch.Tensor  # [B, L] int32
 
     @staticmethod
-    def from_numpy(ids: np.ndarray, device="cpu") -> "SparseIds":
+    def from_numpy(ids: np.ndarray, device="cuda") -> "SparseIds":
         ids = np.asarray(ids, np.int64)
         hi, lo = keylib.split_ids(ids.reshape(-1))
         return SparseIds(torch.from_numpy(hi).reshape(ids.shape).to(device),
                          torch.from_numpy(lo).reshape(ids.shape).to(device))
 
 
+class CompactIds(NamedTuple):
+    """Half-width wire format of one physical table's ids: one int32
+    [B, L] tensor of the raw (unsalted) ids, int32 min marking EMPTY
+    padding. ``EmbeddingGroup._packed_view`` rebuilds the (hi, lo) pair
+    and applies the salts or bucket offsets on the device."""
+
+    ids: torch.Tensor  # [B, L] int32
+
+
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """Move every tensor (and ``SparseIds``) leaf of a batch to
-    ``device``; numpy leaves become tensors there."""
+    """Move every tensor (and ``SparseIds``/``CompactIds``) leaf of a
+    batch to ``device``; numpy leaves become tensors there."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, SparseIds):
             out[k] = SparseIds(v.hi.to(device), v.lo.to(device))
+        elif isinstance(v, CompactIds):
+            out[k] = CompactIds(v.ids.to(device))
         else:
             out[k] = torch.as_tensor(v).to(device)
     return out
@@ -101,7 +114,11 @@ class EmbeddingColumn:
     # row op to that budget (``variable.lookup_train_occ``). None keeps
     # the exact budget U = n.
     num_buckets: Optional[int] = None
-    # Static hash-bucket column (no hash table): not ported yet.
+    # Static hash-bucket column (``categorical_column_with_hash_bucket``
+    # + ``embedding_column``, the reference's default column type):
+    # requires ``num_buckets``; ids address a fully initialized
+    # [num_buckets, dim] matrix by ``id mod num_buckets``, collisions by
+    # design, with no hash table, probe, admission or eviction.
     static_bucket: bool = False
 
     @property
@@ -109,12 +126,18 @@ class EmbeddingColumn:
         return self.shared_name or self.name
 
     def table_config(self) -> cfglib.TableConfig:
-        if self.static_bucket:
-            raise NotImplementedError(
-                f"column {self.name}: static hash-bucket tables are not "
-                "ported")
         scale = (self.init_scale if self.init_scale is not None
                  else self.dim ** -0.5)
+        if self.static_bucket:
+            if not self.num_buckets:
+                raise ValueError(
+                    f"column {self.name}: static_bucket requires "
+                    "num_buckets")
+            return cfglib.TableConfig(
+                name=self.table_name, dim=self.dim,
+                capacity=int(self.num_buckets),
+                initializer=self.initializer, init_scale=scale,
+                combiner=self.combiner, static_buckets=True)
         return cfglib.TableConfig(
             name=self.table_name, dim=self.dim, capacity=self.capacity,
             initializer=self.initializer, init_scale=scale,
@@ -144,6 +167,7 @@ class EmbeddingGroup:
     """Owns every embedding table of a model (single device)."""
 
     PACKED_PREFIX = "__packed__"
+    NUMERIC_PLANE = "__numeric__"
 
     def __init__(self, columns: Sequence[Any], *, coalesce: bool = False):
         self.numeric = [c for c in columns if isinstance(c, NumericColumn)]
@@ -162,6 +186,28 @@ class EmbeddingGroup:
                     raise ValueError(f"shared table {tc.name}: dim mismatch")
             else:
                 logical[tc.name] = tc
+        # Static tables first (their salts, hence their draws, come
+        # first, as in the JAX package); with ``coalesce``, one matrix per
+        # dim class whose members own disjoint row ranges.
+        # Logical static table -> (row offset, bucket count).
+        self._static_map: Dict[str, tuple[int, int]] = {}
+        static: Dict[tuple, list] = {}
+        for name in [n for n, tc in logical.items() if tc.static_buckets]:
+            tc = logical.pop(name)
+            sig = ((tc.dim, tc.initializer, tc.init_scale, str(tc.dtype))
+                   if coalesce else (name,))
+            static.setdefault(sig, []).append((name, tc))
+        for members in static.values():
+            members = sorted(members, key=lambda m: m[0])
+            phys_name = (members[0][0] if len(members) == 1 else
+                         "static:" + ",".join(n for n, _ in members))
+            off = 0
+            for name, tc in members:
+                self._phys_of[name] = (phys_name, 0)
+                self._static_map[name] = (off, tc.capacity)
+                off += tc.capacity
+            self._add_table(dataclasses.replace(members[0][1],
+                                                name=phys_name, capacity=off))
         if not coalesce:
             for name, tc in logical.items():
                 self._phys_of[name] = (name, 0)
@@ -207,7 +253,17 @@ class EmbeddingGroup:
     def transform_ids(self, column: EmbeddingColumn, ids_hi, ids_lo):
         """XOR the column's coalescing salt into both halves of real ids.
         Exact sentinels pass through; a salted id landing on a sentinel
-        pair is nudged off it (flip bit 1 of lo)."""
+        pair is nudged off it (flip bit 1 of lo). A static column maps
+        real ids to their row instead: ``hi = 0``, ``lo = offset + id
+        mod buckets``."""
+        st = self._static_map.get(column.table_name)
+        if st is not None:
+            off, nb = st
+            sent = (ids_hi == keylib.EMPTY_HI) & (
+                (ids_lo == keylib.EMPTY_LO) | (ids_lo == keylib.TOMB_LO))
+            slot = off + keylib.mod_of(ids_hi, ids_lo, nb)
+            return (torch.where(sent, ids_hi, 0).to(torch.int32),
+                    torch.where(sent, ids_lo, slot).to(torch.int32))
         salt = self._phys_of[column.table_name][1]
         if salt == 0:
             return ids_hi, ids_lo
@@ -223,6 +279,16 @@ class EmbeddingGroup:
     def transform_ids_np(self, column: EmbeddingColumn, ids: np.ndarray):
         """Host mirror of :meth:`transform_ids` on raw int64 ids."""
         hi, lo = keylib.split_ids(np.asarray(ids, np.int64))
+        st = self._static_map.get(column.table_name)
+        if st is not None:
+            off, nb = st
+            sent = (hi == keylib.EMPTY_HI) & (
+                (lo == keylib.EMPTY_LO) | (lo == keylib.TOMB_LO))
+            slot = (np.int64(off)
+                    + (np.asarray(ids, np.int64).view(np.uint64)
+                       % np.uint64(nb)).astype(np.int64)).astype(np.int32)
+            return (np.where(sent, hi, 0).astype(np.int32),
+                    np.where(sent, lo, slot).astype(np.int32))
         salt = self._phys_of[column.table_name][1]
         if salt == 0:
             return hi, lo
@@ -236,33 +302,73 @@ class EmbeddingGroup:
         return hi2, np.where(hit, lo2 ^ np.int32(2), lo2)
 
     # -- packed batches ---------------------------------------------------
-    def pack_batch_np(self, batch, device="cpu"):
-        """Host packing: salt and concatenate each physical table's raw
-        int64 id matrices into one ``SparseIds`` pair on ``device``;
-        other leaves become tensors on ``device``. (The JAX package's
-        ``compact=True`` wire format is not ported.)"""
+    def pack_batch_np(self, batch, device="cuda", compact: bool = False):
+        """Host packing of raw numpy leaves (int64 id matrices for sparse
+        columns) into tensors on ``device``: each physical table's ids
+        become one ``SparseIds`` pair, transformed (salts, bucket rows)
+        and concatenated on the host; other leaves become tensors.
+
+        ``compact=True`` is the half-width wire format: a table whose
+        every id round-trips through int32 ships as one raw int32
+        :class:`CompactIds` plane (the transform then runs on the
+        device, in :meth:`_packed_view`), the numeric columns as one
+        bfloat16 plane under ``NUMERIC_PLANE``, other float leaves as
+        bfloat16 and int64 leaves as int32 where that is lossless.
+        Tables with wider ids keep the full pair."""
         packed: Dict[str, Any] = {}
         widths: Dict[str, list] = {}
+        int32_min = np.int32(-(2**31))
         for tname, tcols in self._columns_by_table().items():
-            his, los, ws = [], [], []
+            raw, ws = [], []
             for c in tcols:
                 ids = np.asarray(batch[c.name], np.int64)
-                if ids.ndim == 1:
-                    ids = ids[:, None]
-                hi, lo = self.transform_ids_np(c, ids)
-                his.append(hi)
-                los.append(lo)
-                ws.append(int(ids.shape[1]))
+                raw.append(ids[:, None] if ids.ndim == 1 else ids)
+                ws.append(int(raw[-1].shape[1]))
+            widths[tname] = ws
+            if compact:
+                cat = np.concatenate(raw, axis=1)
+                cat32 = cat.astype(np.int32)
+                # EMPTY padding rides the wire as int32 min, which real
+                # ids must then avoid.
+                is_pad = cat == keylib.EMPTY_ID
+                lossless = ((cat32.astype(np.int64) == cat)
+                            & (cat32 != int32_min))
+                if bool((lossless | is_pad).all()):
+                    packed[self.PACKED_PREFIX + tname] = CompactIds(
+                        torch.from_numpy(np.where(is_pad, int32_min,
+                                                  cat32)).to(device))
+                    continue
+            his, los = zip(*(self.transform_ids_np(c, ids)
+                             for c, ids in zip(tcols, raw)))
             packed[self.PACKED_PREFIX + tname] = SparseIds(
                 torch.from_numpy(np.concatenate(his, axis=1)).to(device),
                 torch.from_numpy(np.concatenate(los, axis=1)).to(device))
-            widths[tname] = ws
         if self._pack_widths is None:
             self._pack_widths = widths
-        emb_names = {c.name for c in self.embedding}
+        skip = {c.name for c in self.embedding}
+        num_names = {c.name for c in self.numeric}
+        if compact and self.numeric and num_names <= set(batch):
+            # One plane instead of a leaf per numeric column: every
+            # host-to-device copy pays a fixed cost.
+            parts = [np.asarray(batch[c.name], np.float32)
+                     for c in self.numeric]
+            plane = np.concatenate(
+                [a[:, None] if a.ndim == 1 else a for a in parts], axis=1)
+            packed[self.NUMERIC_PLANE] = torch.from_numpy(plane).to(
+                torch.bfloat16).to(device)
+            skip |= num_names
         for k, v in batch.items():
-            if k not in emb_names:
-                packed[k] = torch.as_tensor(np.asarray(v)).to(device)
+            if k in skip:
+                continue
+            a = np.asarray(v)
+            if compact and a.dtype in (np.float64, np.float32):
+                t = torch.from_numpy(a).to(torch.bfloat16)
+            elif (compact and a.dtype == np.int64
+                  and bool((a.astype(np.int32) == a).all())):
+                t = torch.from_numpy(a.astype(np.int32))
+            else:
+                t = torch.as_tensor(a)
+            packed[k] = t.to(device)
         return packed
 
     def _packed_view(self, batch, tname, tcols):
@@ -271,7 +377,21 @@ class EmbeddingGroup:
         key = self.PACKED_PREFIX + tname
         if key in batch:
             s = batch[key]
-            return s.hi, s.lo, self._pack_widths[tname]
+            widths = self._pack_widths[tname]
+            if not isinstance(s, CompactIds):
+                return s.hi, s.lo, widths
+            hi, lo = keylib.split_ids_tensor(s.ids)
+            pad = s.ids == -(2**31)
+            hi = torch.where(pad, keylib.EMPTY_HI, hi)
+            lo = torch.where(pad, keylib.EMPTY_LO, lo)
+            his, los, off = [], [], 0
+            for c, w in zip(tcols, widths):
+                h, l = self.transform_ids(c, hi[:, off:off + w],
+                                          lo[:, off:off + w])
+                his.append(h)
+                los.append(l)
+                off += w
+            return torch.cat(his, dim=1), torch.cat(los, dim=1), widths
         his, los = [], []
         for c in tcols:
             s = batch[c.name]
@@ -378,7 +498,10 @@ class EmbeddingGroup:
         return sum(gl.budget_overflow.values())
 
     def numeric_features(self, batch):
-        """Stack numeric columns -> [B, sum(shapes)] float32."""
+        """Stack numeric columns -> [B, sum(shapes)] float32 (a compact
+        batch's numeric plane, read back as float32)."""
+        if self.NUMERIC_PLANE in batch:
+            return batch[self.NUMERIC_PLANE].to(torch.float32)
         parts = []
         for c in self.numeric:
             x = batch[c.name].to(torch.float32)

@@ -21,7 +21,7 @@ from torch import nn
 
 def _linear(in_features: int, out_features: int, device) -> nn.Linear:
     return nn.utils.skip_init(nn.Linear, in_features, out_features,
-                              device=device if device is not None else "cpu")
+                              device=device)
 
 
 def init_dense(module: nn.Module, generator: torch.Generator):
@@ -41,7 +41,7 @@ class MLP(nn.Module):
     (none after the last)."""
 
     def __init__(self, in_features: int, units: Sequence[int],
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         self.dtype = dtype
         self.n_layers = len(units)
@@ -63,7 +63,7 @@ class MLP(nn.Module):
 class LogitsHead(nn.Module):
     """Final projection to one logit per row, in float32."""
 
-    def __init__(self, in_features: int, device=None):
+    def __init__(self, in_features: int, device="cuda"):
         super().__init__()
         self.logits = _linear(in_features, 1, device)
 

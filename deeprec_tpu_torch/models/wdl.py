@@ -33,6 +33,7 @@ def criteo_columns(
     combiner: str = "mean",
     reference_shapes: bool = False,
     wide_in_deep: bool = False,
+    static_buckets: bool = False,
 ):
     """Criteo-Kaggle column set: I1..I13 numeric, C1..C26 categorical,
     each with a deep embedding and a wide (dim-1) weight.
@@ -42,7 +43,10 @@ def criteo_columns(
     ceiling), and those counts declared as ``num_buckets``, which bounds
     each step's unique ids. ``wide_in_deep``: the wide weight rides as
     channel 0 of the deep table (dim+1) instead of a separate dim-1
-    table.
+    table. ``static_buckets``: static hash-bucket columns (the
+    reference's default, ``categorical_column_with_hash_bucket``) of
+    the reference bucket counts, or of ``capacity`` buckets when not
+    reference-shaped.
     """
     ev_option = ev_option or cfglib.EmbeddingVariableOption()
     cols = [NumericColumn(f"I{i}") for i in range(1, NUM_INT + 1)]
@@ -55,19 +59,20 @@ def criteo_columns(
                 headroom=2.2 if buckets <= (1 << 16) else 1.3)
         else:
             dim, cap, buckets = embedding_dim, capacity, None
+        extra = dict(num_buckets=buckets)
+        if static_buckets:
+            extra = dict(num_buckets=buckets or capacity, static_bucket=True)
         if wide_in_deep:
             cols.append(EmbeddingColumn(
                 name=f"C{i}", dim=dim + 1, capacity=cap,
-                combiner=combiner, ev_option=ev_option,
-                num_buckets=buckets))
+                combiner=combiner, ev_option=ev_option, **extra))
             continue
         cols.append(EmbeddingColumn(
             name=f"C{i}", dim=dim, capacity=cap,
-            combiner=combiner, ev_option=ev_option, num_buckets=buckets))
+            combiner=combiner, ev_option=ev_option, **extra))
         cols.append(EmbeddingColumn(
             name=f"C{i}_wide", dim=1, capacity=cap, combiner="sum",
-            initializer="zeros", ev_option=ev_option,
-            num_buckets=buckets))
+            initializer="zeros", ev_option=ev_option, **extra))
     return cols
 
 
@@ -86,7 +91,7 @@ class WDL(nn.Module):
 
     def __init__(self, in_features: int,
                  hidden: Sequence[int] = (1024, 512, 256),
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         self.deep = MLP(in_features, hidden, dtype=dtype, device=device)
         self.head = LogitsHead(hidden[-1], device=device)

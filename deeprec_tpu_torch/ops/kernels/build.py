@@ -1,13 +1,15 @@
-"""Build a kernel's CUDA source into a shared library and load it.
+"""Build a C or CUDA source into a shared library and load it.
 
 Each kernel in ``deeprec_tpu_torch/csrc/`` exposes a plain C entry, so
 it builds with ``nvcc`` alone (no PyTorch headers: seconds, not
-minutes) and binds with ``ctypes``. The library goes to
-``build/kernels/`` at the repository root, named by a hash of the
-source and flags; a file lock serializes processes that build the same
-kernel at once, and different kernels build in parallel. Nothing is
-built at import: only a wrapper's first launch calls
-:func:`load_library`.
+minutes) and binds with ``ctypes``; the host parser in
+``deeprec_tpu_torch/native/`` builds the same way with ``g++``. A
+library goes to ``build/kernels/`` or ``build/native/`` at the
+repository root, named by a hash of the source and flags; a file lock
+serializes processes that build the same library at once, and
+different libraries build in parallel. Nothing is built at import:
+only a wrapper's first call calls :func:`load_library` or
+:func:`load_host_library`.
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "native")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 # Flags of one kernel on top of NVCC_FLAGS. The optimizer applies keep
 # every multiply and add separately rounded, as their plain PyTorch
 # versions do, so the two can be compared for equality.
@@ -35,7 +40,8 @@ KERNEL_FLAGS = {"sparse_apply": ("--fmad=false",)}
 _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
-# Seconds spent in nvcc per kernel by this process (0.0: cache hit).
+# Seconds spent in the compiler per library by this process (0.0: cache
+# hit).
 build_seconds: dict[str, float] = {}
 
 
@@ -49,33 +55,41 @@ def _nvcc() -> str:
     return path
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu``. Safe to call from
-    several threads: each kernel has its own lock."""
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: it is needed to build the "
+                           "port's host parser")
+    return path
+
+
+def _load(name: str, src: str, compiler, flags, build_dir: str
+          ) -> ctypes.CDLL:
+    """Build (once) and load ``src`` as library ``name`` with
+    ``compiler()`` and ``flags``. Safe to call from several threads:
+    each library has its own lock."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _loaded:
             return _loaded[name]
-        flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(
                 f.read() + " ".join(flags).encode()).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lk:
+        os.makedirs(build_dir, exist_ok=True)
+        so = os.path.join(build_dir, f"{name}-{digest}.so")
+        with open(os.path.join(build_dir, f"{name}.lock"), "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
             try:
                 t0 = time.perf_counter()
                 if not os.path.exists(so):
                     tmp = f"{so}.{os.getpid()}.tmp"
                     proc = subprocess.run(
-                        [_nvcc(), *flags, "-o", tmp, src],
+                        [compiler(), *flags, "-o", tmp, src],
                         capture_output=True, text=True)
                     if proc.returncode != 0:
                         raise RuntimeError(
-                            f"nvcc failed to build {src}:\n{proc.stderr}")
+                            f"failed to build {src}:\n{proc.stderr}")
                     os.replace(tmp, so)
                 build_seconds[name] = time.perf_counter() - t0
             finally:
@@ -83,3 +97,15 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         _loaded[name] = lib
         return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (once) with ``nvcc`` and load ``csrc/<name>.cu``."""
+    return _load(name, os.path.join(CSRC_DIR, f"{name}.cu"), _nvcc,
+                 NVCC_FLAGS + KERNEL_FLAGS.get(name, ()), BUILD_DIR)
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build (once) with ``g++`` and load ``native/<name>.cc``."""
+    return _load(name, os.path.join(NATIVE_DIR, f"{name}.cc"), _gxx,
+                 HOST_FLAGS, HOST_BUILD_DIR)

@@ -58,7 +58,7 @@ def build(config: dict) -> dict:
         for i in range(1, wdl.NUM_CAT + 1):
             batch[f"C{i}"] = np.asarray([[int(r[f"C{i}"])] for r in inst],
                                         np.int64)
-        return group.pack_batch_np(batch)
+        return group.pack_batch_np(batch, device)
 
     return {"group": group, "apply_fn": wdl.apply_fn(model, group),
             "ts_template": ts, "parse_request": parse_request}

@@ -10,9 +10,10 @@ for the dense Adagrad state (optax's ``(ScaleByRssState, EmptyState)``).
 A table file holds the 4-tensor EV format (keys/values/freqs/versions)
 plus the sparse optimizer's state: its row-aligned slot arrays as
 ``slot/['accum']`` (or ``slot/['m']``, ``slot/['v']``), one row per key,
-and its other leaves as ``scalar/['beta1_power']`` and the like. The
-JAX package and the port read each other's checkpoints, optimizer state
-included.
+and its other leaves as ``scalar/['beta1_power']`` and the like. A
+static hash-bucket table is saved in full on every save, incremental
+ones included, keyed by row index. The JAX package and the port read
+each other's checkpoints, optimizer state included.
 
 Restore fills what the template state carries: a template without
 optimizer state (serving) skips the ``slot/*``, ``scalar/*`` and
@@ -98,18 +99,28 @@ def _row_aligned(cfg, slots: Dict[str, torch.Tensor]):
             if v.dim() >= 1 and v.shape[0] == cfg.capacity + 1}
 
 
+def _live_rows(cfg, state: ev.EVState):
+    """Index of the rows ``export_arrays`` saves, in its order: every
+    row of a static table, the live slots of an EV table."""
+    if cfg.static_buckets:
+        return slice(0, cfg.capacity)
+    return torch.nonzero(ht.live_mask(state.table)).reshape(-1)
+
+
 def _export_table(cfg, state: ev.EVState, slots: Dict[str, torch.Tensor],
                   min_version: Optional[int]) -> Dict[str, np.ndarray]:
     """Live rows with their slot rows (all, or touched since
-    ``min_version`` where the table records versions; otherwise a delta
-    is a full dump, as in the JAX package), and the scalar slots."""
+    ``min_version`` where the table records versions; otherwise, and
+    for a static table always, a delta is a full dump, as in the JAX
+    package), and the scalar slots."""
     out = ev.export_arrays(cfg, state)
     rows = _row_aligned(cfg, slots)
     if rows:
-        idx = torch.nonzero(ht.live_mask(state.table)).reshape(-1)
+        idx = _live_rows(cfg, state)
         for k, v in rows.items():
             out[f"slot/['{k}']"] = v[idx].cpu().numpy()
-    if min_version is not None and ev._tracking(cfg)[1]:
+    if (min_version is not None and not cfg.static_buckets
+            and ev._tracking(cfg)[1]):
         keep = out["versions"] >= min_version
         out = {k: v[keep] for k, v in out.items()}
     for k, v in slots.items():

@@ -43,6 +43,17 @@ def join_ids(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return ((hi_u << np.uint64(32)) | lo_u).view(np.int64)
 
 
+def split_ids_tensor(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int32 ids on any device -> (hi, lo) int32 with ``hi`` the sign
+    extension, so :func:`join_ids` gives back the same int64 value
+    (``split_ids_jnp`` of the JAX package)."""
+    if ids.dtype != torch.int32:
+        raise TypeError(f"split_ids_tensor expects int32 ids, got "
+                        f"{ids.dtype}; split int64 ids on the host with "
+                        "split_ids()")
+    return torch.where(ids < 0, -1, 0).to(torch.int32), ids
+
+
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 (or int64) lanes -> their uint32 value in int64 lanes
     (negative int32 wraps, as a uint32 cast does)."""

@@ -87,7 +87,8 @@ class _Jax:
 class _Port:
     def __init__(self, opt_name, params):
         self.group = tfc.EmbeddingGroup(_columns(tfc), coalesce=True)
-        model = twdl.WDL(twdl.input_width(self.group), hidden=HIDDEN)
+        model = twdl.WDL(twdl.input_width(self.group), hidden=HIDDEN,
+                         device="cpu")
         self.params = convert.wdl_params_from_numpy(
             jax.tree.map(np.asarray, params))
         self.opt = (tsopt.SparseAdagrad(0.2) if opt_name == "adagrad"
@@ -104,7 +105,7 @@ class _Port:
             self.dopt, self.opt, device="cpu")
 
     def step(self, ts, i):
-        ts, m = self.step_fn(ts, self.group.pack_batch_np(_raw(i)))
+        ts, m = self.step_fn(ts, self.group.pack_batch_np(_raw(i), "cpu"))
         return ts, float(m["loss"])
 
 

@@ -97,7 +97,7 @@ def trained(tmp_path_factory):
 
 def _port_serving(ckpt):
     group = tfc.EmbeddingGroup(_columns(tfc), coalesce=True)
-    model = twdl.WDL(twdl.input_width(group), hidden=(16,))
+    model = twdl.WDL(twdl.input_width(group), hidden=(16,), device="cpu")
     ts = tloop.create_train_state(group, model.state_dict(), device="cpu")
     return group, ServingModel(group, twdl.apply_fn(model, group), ts, ckpt)
 
@@ -110,7 +110,7 @@ def test_full_delta_update_and_rollback(trained):
     assert jserv.full_update() == 5
     ref5 = np.asarray(jserv.predict(jg.pack_batch_np(raw)))
     np.testing.assert_allclose(
-        serving.predict(tg.pack_batch_np(raw)).numpy(), ref5, **TOL)
+        serving.predict(tg.pack_batch_np(raw, "cpu")).numpy(), ref5, **TOL)
 
     # A delta written by the JAX package is applied without a reload.
     trained["mgr"].save(trained["states"][8], incremental=True, since_step=5)
@@ -120,12 +120,12 @@ def test_full_delta_update_and_rollback(trained):
         trained["states"][8], jg.pack_batch_np(raw)))
     assert not np.allclose(ref8, ref5)
     np.testing.assert_allclose(
-        serving.predict(tg.pack_batch_np(raw)).numpy(), ref8, **TOL)
+        serving.predict(tg.pack_batch_np(raw, "cpu")).numpy(), ref8, **TOL)
 
     # Rollback to version 5.
     assert serving.full_update(step=5) == 5
     np.testing.assert_allclose(
-        serving.predict(tg.pack_batch_np(raw)).numpy(), ref5, **TOL)
+        serving.predict(tg.pack_batch_np(raw, "cpu")).numpy(), ref5, **TOL)
 
 
 def test_http_scorer(trained):
@@ -138,7 +138,7 @@ def test_http_scorer(trained):
                  for k in ("x1", "x2")}
         for c in ("C1", "C2", "C3"):
             batch[c] = np.asarray([[r[c]] for r in inst], np.int64)
-        return tg.pack_batch_np(batch)
+        return tg.pack_batch_np(batch, "cpu")
 
     scorer = HttpScorer(serving, parse, host="127.0.0.1")
     scorer.start()
@@ -249,7 +249,9 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.data.criteo, deeprec_tpu_torch.ops.kernels.gather, "
         "deeprec_tpu_torch.ops.kernels.sparse_apply, deeprec_tpu_torch.bench, "
         "deeprec_tpu_torch.train.checkpoint, deeprec_tpu_torch.train.loop, "
-        "deeprec_tpu_torch.optimizers.dense\n"
+        "deeprec_tpu_torch.optimizers.dense, deeprec_tpu_torch.native, "
+        "deeprec_tpu_torch.data.prefetch\n"
+        "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'deeprec_tpu')]\n"
         "assert 'jax' not in sys.modules and not bad, bad\n")

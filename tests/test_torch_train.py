@@ -99,7 +99,7 @@ def _run(config, opt_name, dtype):
     tg = TGroup(spec["cols"](twdl, tcfg.EmbeddingVariableOption),
                 coalesce=True)
     tmodel = twdl.WDL(twdl.input_width(tg), hidden=HIDDEN,
-                      dtype=getattr(torch, dtype))
+                      dtype=getattr(torch, dtype), device="cpu")
     dopt = tdense.Adagrad(0.05)
     tts = tloop.create_train_state(
         tg, convert.wdl_params_from_numpy(jax.tree.map(np.asarray, params)),
@@ -112,7 +112,7 @@ def _run(config, opt_name, dtype):
            "tover": []}
     for r, b in zip(raw, jb):
         jts, jm = jstep(jts, b)
-        tts, tm = tstep(tts, tg.pack_batch_np(r))
+        tts, tm = tstep(tts, tg.pack_batch_np(r, "cpu"))
         out["jloss"].append(float(jm["loss"]))
         out["tloss"].append(float(tm["loss"]))
         out["jover"].append(int(jm["n_overflow"]))
@@ -202,11 +202,11 @@ def test_dense_params_and_state_match(run):
 
 def test_unported_paths_raise():
     from deeprec_tpu_torch.embedding import variable as tev
-    from deeprec_tpu_torch.feature_column.feature_column import (
-        EmbeddingColumn)
 
-    with pytest.raises(NotImplementedError, match="static hash-bucket"):
-        EmbeddingColumn("c", dim=4, static_bucket=True).table_config()
+    cbf = tcfg.EmbeddingVariableOption(filter_option=tcfg.CBFFilter(2))
+    with pytest.raises(NotImplementedError, match="CBF"):
+        tev.create(tcfg.TableConfig(name="c", dim=4, capacity=64,
+                                    ev_option=cbf), "cpu")
     with pytest.raises(NotImplementedError, match="SparseFtrl"):
         tsopt.make("ftrl")
     cfg = tcfg.TableConfig(name="d", dim=4, capacity=64, block_num=2,

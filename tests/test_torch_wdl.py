@@ -57,7 +57,8 @@ def test_wdl_forward_matches_flax(wide_in_deep, dtype):
                          jnp.asarray(numeric))["params"]
     want = np.asarray(jmodel.apply({"params": params}, jembs,
                                    jnp.asarray(numeric)))
-    tmodel = twdl.WDL(width, hidden=(32, 16), dtype=getattr(torch, dtype))
+    tmodel = twdl.WDL(width, hidden=(32, 16), dtype=getattr(torch, dtype),
+                      device="cpu")
     tmodel.load_state_dict(convert.wdl_params_from_numpy(
         jax.tree.map(np.asarray, params)))
     got = tmodel({k: torch.from_numpy(v) for k, v in embs.items()},
@@ -112,7 +113,7 @@ def test_synthetic_stream_and_packing_match():
     tdata = tcriteo.SyntheticCriteo(64, vocab=tcriteo.CRITEO_HASH_BUCKETS,
                                     seed=3)
     jb = jdata.next_batch()
-    tb = tdata.next_batch()
+    tb = tdata.next_batch("cpu")
     for k, v in jb.items():
         if k.startswith("C"):
             np.testing.assert_array_equal(tb[k].hi.numpy(), np.asarray(v.hi))
@@ -122,7 +123,7 @@ def test_synthetic_stream_and_packing_match():
     jg, tg = _groups(True, capacity=1 << 20)
     raw = tdata.next_batch_np(wide=False)
     jp = jg.pack_batch_np(raw)
-    tp = tg.pack_batch_np(raw)
+    tp = tg.pack_batch_np(raw, "cpu")
     for name in tg.tables:
         key = tg.PACKED_PREFIX + name
         np.testing.assert_array_equal(tp[key].hi.numpy(),
@@ -173,7 +174,7 @@ def test_eval_step_matches_jax():
     want = np.asarray(jloop.make_eval_step(
         jg, jwdl.apply_fn(jmodel, jg))(jts, jp))
 
-    tmodel = twdl.WDL(twdl.input_width(tg), hidden=(16, 8))
+    tmodel = twdl.WDL(twdl.input_width(tg), hidden=(16, 8), device="cpu")
     tparams = convert.wdl_params_from_numpy(jax.tree.map(np.asarray, params))
     tev = {}
     for tname, st in jstates.items():
@@ -184,5 +185,5 @@ def test_eval_step_matches_jax():
             "cpu")
     tts = tloop.TrainState(params=tparams, ev=tev)
     got = tloop.make_eval_step(tg, twdl.apply_fn(tmodel, tg))(
-        tts, tg.pack_batch_np(batch))
+        tts, tg.pack_batch_np(batch, "cpu"))
     np.testing.assert_allclose(got.numpy(), want, **FP32_TOL)

@@ -78,7 +78,8 @@ def stage_spans():
 
 def latency_table(serving, group, raw, reps):
     for n in SIZES:
-        batch = group.pack_batch_np({k: v[:n] for k, v in raw.items()})
+        batch = group.pack_batch_np({k: v[:n] for k, v in raw.items()},
+                                    "cpu")
         lat = []
         for i in range(3 + reps):
             torch.cuda.synchronize()
@@ -163,7 +164,7 @@ def main():
         print(f"restore: {time.perf_counter() - t0:.3f} s", flush=True)
     latency_table(serving, group, raw, args.reps)
 
-    batch = group.pack_batch_np(raw)
+    batch = group.pack_batch_np(raw, "cpu")
     with stage_spans():
         for _ in range(3):
             serving.predict(batch)

@@ -1,33 +1,46 @@
 #!/usr/bin/env python3
-"""Step time, host syncs and device-time split of the port's headline
-training step.
+"""Step time, host syncs and device-time split of the port's training
+step.
 
 Run from the repository root on one CUDA card:
 
     python3 tools/profile_train_torch.py [--steps 20] [--opt adagrad]
+        [--row headline|static|dim16|e2e] [--fresh] [--warmup 10]
         [--trace build/train_trace_torch.json]
 
-It builds the headline WDL of ``deeprec_tpu_torch.bench`` (reference
-shapes, B = 16,384, ``SparseAdagrad`` or ``SparseAdam``) and, after 10
-warm-up steps on 8 pre-packed batches:
+It builds a WDL row of ``deeprec_tpu_torch.bench`` (by default the
+headline: reference shapes, B = 16,384, ``SparseAdagrad`` or
+``SparseAdam``; ``static``: the same shapes as static hash-bucket
+columns; ``dim16``; ``e2e``: the headline model on the e2e row's
+batches, read from a TSV of ``SyntheticCriteo(vocab=200_000, seed=7)``
+written into a new directory under ``$TMPDIR``, parsed natively with
+31-bit ids and packed compact as ``bench.e2e_batches`` does, then staged
+on the card before the first step). The steps cycle over 8 pre-packed
+batches, as the rows of ``bench`` do; with ``--fresh`` every step takes
+a batch no step has seen, as the e2e row's steps do. After
+``--warmup`` steps it:
 
 1. times ``--steps`` steps with the host clock, fenced by
-   ``torch.cuda.synchronize()``: median step time and samples/s;
+   ``torch.cuda.synchronize()``: median step time and samples/s, and
+   each step's time and ``n_overflow``;
 2. counts the host syncs of one step: ``torch.cuda.set_sync_debug_mode``
    warns at every operation that waits for the card, and the warnings
    are counted by the operation that raised them;
 3. runs ``torch.profiler`` over 5 steps with spans around the layers:
    probe (``hash_table.find_or_insert``), fetch (K1, ``gather_rows``),
    lookup (the rest of ``lookup_train_occ``: first-occurrence dedup,
-   compaction, row init, metadata), combine, towers forward (the model's
+   compaction, row init, metadata; for a static table
+   ``lookup_train_static``), combine, towers forward (the model's
    ``apply_fn``), backward (``torch.autograd.grad``), dense Adagrad and
    the sparse apply (K2 or K3). Each device event is charged to the
    innermost span whose host interval holds its launch (the backward's
    launches come from autograd's own thread while the step waits inside
    its span); launches outside every span go to "other". It prints the
    profiled wall time, the device's busy share (union of device
-   intervals over the wall time), device time per step by layer, and the
-   kernels that take the most device time. The Chrome trace goes to
+   intervals over the wall time), device time per step by layer, the
+   host's wall time inside each span, the kernels that take the most
+   device time, then the profiled steps'
+   ``n_overflow`` and each table's live keys. The Chrome trace goes to
    ``--trace``.
 
 The spans are added here by rebinding the functions the step calls
@@ -43,6 +56,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 import warnings
 
@@ -52,6 +66,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILED_STEPS = 5
 WARMUP = 10
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_WARMUP = 3
+ROW_KW = {"headline": {}, "static": {"static_buckets": True},
+          "dim16": {"reference_shapes": False}, "e2e": {}}
 
 
 def _spanned(name, fn):
@@ -71,6 +88,7 @@ def stage_spans(opt_name: str):
     targets = [(hash_table, "find_or_insert", "probe"),
                (gather, "gather_rows", "fetch"),
                (variable, "lookup_train_occ", "lookup"),
+               (variable, "lookup_train_static", "lookup"),
                (feature_column.EmbeddingGroup, "combine", "combine"),
                (torch.autograd, "grad", "backward"),
                (dense.Adagrad, "apply", "dense_adagrad"),
@@ -131,6 +149,13 @@ def device_split(trace_path: str, steps: int):
     for stage, us in by_stage.most_common():
         print(f"profile: {stage}: {us / steps / 1e3:.3f} ms device time per "
               f"step ({100 * us / total:.1f} %)", flush=True)
+    host = collections.Counter()
+    for s0, s1, name in spans:
+        host[name] += s1 - s0
+    for stage, us in host.most_common():
+        print(f"profile host: {stage}: {us / steps / 1e3:.3f} ms of wall "
+              f"time per step inside the span (nested spans included)",
+              flush=True)
     for name, us in by_kernel.most_common(12):
         print(f"profile kernel: {us / steps / 1e3:.3f} ms per step: {name}",
               flush=True)
@@ -155,38 +180,70 @@ def count_syncs(step, ts, batch):
     return ts, counts
 
 
+def e2e_batches(tr, n: int) -> list:
+    """``n`` batches of the e2e row, staged on the card."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    from deeprec_tpu_torch.feature_column.feature_column import batch_to
+    with tempfile.TemporaryDirectory(prefix="deeprec_torch_e2e_") as d:
+        path = os.path.join(d, "criteo.tsv")
+        bench.write_tsv(path, n * bench.BATCH,
+                        SyntheticCriteo(bench.BATCH, vocab=200_000, seed=7))
+        return [batch_to(b, tr.device) for b in bench.e2e_batches(tr, path)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--opt", default="adagrad", choices=("adagrad", "adam"))
+    ap.add_argument("--row", default="headline",
+                    choices=tuple(ROW_KW))
+    ap.add_argument("--fresh", action="store_true")
+    ap.add_argument("--warmup", type=int, default=WARMUP)
     ap.add_argument("--trace", default=os.path.join(
         "build", "train_trace_torch.json"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke
     from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.embedding import variable as ev
 
     chip_smoke.phase_device()
-    tr = bench.build_wdl(reference_shapes=True, device="cuda",
-                         sparse_opt=args.opt)
-    batches = [tr.next_batch() for _ in range(bench.PREPACKED)]
+    tr = bench.build_wdl(device="cuda", sparse_opt=args.opt,
+                         **ROW_KW[args.row])
+    # warm-up, timed steps, the sync count, the spanned step's warm-up
+    # and the profiled steps each take their batches in turn.
+    n = (args.warmup + args.steps + 1 + SPAN_WARMUP + PROFILED_STEPS
+         if args.fresh else bench.PREPACKED)
+    if args.row == "e2e":
+        batches = e2e_batches(tr, n)
+    else:
+        batches = [tr.next_batch() for _ in range(n)]
+    order = iter(range(1 << 30))
+
+    def batch():
+        return batches[next(order) % len(batches)]
+
     ts = tr.ts
-    for i in range(WARMUP):
-        ts, _ = tr.step(ts, batches[i % len(batches)])
+    for _ in range(args.warmup):
+        ts, _ = tr.step(ts, batch())
     torch.cuda.synchronize()
-    times = []
-    for i in range(args.steps):
+    times, overflow = [], []
+    for _ in range(args.steps):
         t0 = time.perf_counter()
-        ts, m = tr.step(ts, batches[i % len(batches)])
+        ts, m = tr.step(ts, batch())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        overflow.append(int(m["n_overflow"]))
     med = statistics.median(times)
     print(f"step: median {med:.3f} ms, min {min(times):.3f}, max "
           f"{max(times):.3f} over {args.steps} synchronized steps; "
           f"{bench.BATCH / (med * 1e-3):.0f} samples/s; loss "
           f"{float(m['loss']):.6f}", flush=True)
+    print(f"step ms {[round(t, 3) for t in times]}; n_overflow {overflow}",
+          flush=True)
 
-    ts, syncs = count_syncs(tr.step, ts, batches[0])
+    ts, syncs = count_syncs(tr.step, ts, batch())
     print(f"host syncs in one step: {sum(syncs.values())}", flush=True)
     for where, n in syncs.most_common():
         print(f"host syncs: {n} at {where}", flush=True)
@@ -197,19 +254,24 @@ def main():
     step = make_train_step(tr.group, _spanned("towers_fwd", tr.apply_fn),
                            tr.loss_fn, tr.sparse_opt, tr.dense_opt)
     with stage_spans(args.opt):
-        for i in range(3):
-            ts, _ = step(ts, batches[i])
+        for _ in range(SPAN_WARMUP):
+            ts, _ = step(ts, batch())
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
+        metrics = []
         with torch.profiler.profile(activities=acts) as prof:
-            for i in range(PROFILED_STEPS):
+            for _ in range(PROFILED_STEPS):
                 with torch.profiler.record_function("train_step"):
-                    ts, _ = step(ts, batches[i])
+                    ts, m = step(ts, batch())
+                metrics.append(m)
             torch.cuda.synchronize()
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
     prof.export_chrome_trace(args.trace)
     device_split(args.trace, PROFILED_STEPS)
+    print(f"profiled steps: n_overflow "
+          f"{[int(m['n_overflow']) for m in metrics]}; live keys "
+          f"{ {t: ev.num_live(st) for t, st in ts.ev.items()} }", flush=True)
 
 
 if __name__ == "__main__":
