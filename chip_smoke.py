@@ -8,8 +8,9 @@ Phases, one output line or more each; any failure raises and exits
 non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
-2. build: the ``gather_rows`` and ``sparse_apply`` kernels from
-   ``deeprec_tpu_torch/csrc``, one ``nvcc`` each, in parallel.
+2. build: the ``gather_rows``, ``sparse_apply``, ``hash_probe`` and
+   ``init_rows`` kernels from ``deeprec_tpu_torch/csrc``
+   (``build.KERNELS``), one ``nvcc`` each, in parallel.
 3. K1 against its plain PyTorch version on the card, exact (a gather is
    a copy), at the serving shapes with uniform slots and at edge cases
    (``EDGE_WIDTHS``, bf16 at odd D, n below a warp, ragged and empty,
@@ -22,11 +23,13 @@ non-zero:
    a fresh insert draws them, towers from a seeded generator; saved as a
    full checkpoint.
 5. in-process serving: ``ServingModel.full_update`` restores it and
-   scores a 16,384 batch through K1 (launch count reset just before,
-   read just after), against the same state scored with the plain
-   gather, and against a CPU restore of the checkpoint on a small input.
-   Then K1 on that request's own lookup operands, both tables: equal to
-   its plain version, timed beside it and ``F.embedding``.
+   scores a 16,384 batch through K1 and P1's ``find`` (launch counts
+   reset just before, read just after), against the same state scored
+   with the plain gather, and against a CPU restore of the checkpoint on
+   a small input. Then K1 and P1 on that request's own lookup operands,
+   both tables: equal to their plain versions, timed beside them and
+   ``F.embedding``; and the request's lookups under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 6. the worker process: spawned, queried over HTTP, its answers checked
    against phase 5's scores, shut down by closing its stdin.
 7. (a) K2 (sparse Adagrad) and K3 (lazy Adam) against their plain
@@ -38,18 +41,25 @@ non-zero:
    (``_apply_bytes``).
 8. (b) the headline training step through ``deeprec_tpu_torch.bench``:
    30 warm-up and 30 measured steps at B = 16,384 (samples/s, per-step
-   ``n_overflow``, finite losses), with K1 and K2 launch counts reset
-   just before and read just after. Then one more step's lookup runs
-   with K1's operands recorded, and K1 is compared and timed on them,
-   both tables, as in phase 5; that step's row gradients, taken once,
-   are applied by K2 to one copy of the tables and by the plain version
-   to another, compared, and both timed. The kernels' record takes K1's
-   and K2's times from here.
+   ``n_overflow``, finite losses), with K1, K2, P1 and P2 launch counts
+   reset just before and read just after. The lookups of an unseen
+   batch (``unseen_batch``: every id moved past the stream's) run under
+   ``set_sync_debug_mode("error")``, and those of another are captured
+   in a CUDA graph, which fails on any host sync; P2 is compared and
+   timed on the draws of a third (every row fresh). Then one more
+   step's lookup runs with K1's, P1's and P2's operands recorded, and
+   each is compared and timed on them, both tables, as in phase 5 (P1
+   on the stream's next batch, fast round and straggler kernel apart,
+   and on the same batch again, every key then present); that step's
+   row gradients, taken once, are applied by K2 to one copy of the
+   tables and by the plain version to another, compared, and both
+   timed. The kernels' record takes K1's, K2's, P1's and P2's times
+   from here.
 9. (d) that trained state saved as a full checkpoint and restored with
    the port's ``CheckpointManager``: equal eval scores, and the
    checkpoint holds ``slot/['accum']`` rows and ``dense_opt`` leaves.
 10. (c) the same path with ``sparse_opt="adam"`` for a few steps, with
-   the same checks for K1 and K3.
+   the same checks for K1, P1, P2 and K3.
 11. (e) the sizes of ``__graft_entry__._build`` built with the port
    alone, three steps on the card and on the CPU from the same weights;
    the losses must agree.
@@ -64,8 +74,8 @@ non-zero:
    accumulators equal) and served by ``ServingModel`` (identical
    logits).
 13. (g) the dim16 row (one coalesced EV table, 17 x 2**25 rows): 10
-   warm-up and 10 measured steps, launch counts as in (f), K1 and K2 at
-   D = 17 against their plain versions on a step's operands.
+   warm-up and 10 measured steps, launch counts as in (b), K1, P1, P2 and
+   K2 at D = 17 against their plain versions on a step's operands.
 14. (h) the e2e row: a TSV of 8 x 16,384 rows written to a temporary
    directory; its first 1,000 lines parsed by the native parser and by
    the Python line parser (labels and ids equal, numerics within one
@@ -73,8 +83,27 @@ non-zero:
    in double, as in the JAX package); the first batch's compact pack
    unpacked on the card equal to the full pack; then the pipeline
    (native parse, compact pack on a prefetch thread, pinned copies,
-   headline step) timed with launch counts as in (f), and K1 and K2
-   compared on one of its batches.
+   headline step) timed with launch counts as in (b), the lookups of one
+   of its batches under ``set_sync_debug_mode("error")``, and K1, P1, P2
+   and K2 compared on another.
+15. (i) run right after phase 7: P1 against its plain version on every
+   case of ``tests/torch_probe_cases.py`` (the CPU tests' cases:
+   duplicates, one crowded bucket row, more ids pending than a round
+   takes, the round cap, tombstones, lookup-only ids, sentinels), then
+   on a 65-wide table of 2**19 slots fed batches of 294,912 unseen ids
+   until it is full, timed on the next batch (every id runs to the
+   round cap) and on a lookup of it; then an insert of unseen ids into
+   the full table captured in a CUDA graph (no host sync).
+16. (j) the headline path for 3 + 3 steps with each optimizer beyond
+   Adagrad and Adam (SGD, AdagradDecay, AdamAsync in both forms, Ftrl,
+   FtrlV2): P1 launched by each, K3 by AdamAsync.
+17. (k) a reading, not a gate: the headline model trained twice from the
+   same state on the same 5 batches; whether losses and tables are
+   bit-equal, and by how much they differ.
+18. (l) the fused combine (``combine_tables`` + ``apply_fn_fused``)
+   against the dict path for 3 headline steps on those batches: losses
+   within ``FUSED_LOSS_RTOL``; then the step time of each, in turns on
+   the same batches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -120,6 +149,21 @@ APPLY_RTOL, APPLY_ATOL = 1e-6, 1e-7
 ADAM_STEPS = (2, 3)  # warm-up and measured steps of phase (c)
 DIM16_STEPS = (10, 10)  # warm-up and measured steps of phase (g)
 E2E_BATCHES = 8  # batches of the TSV of phase (h)
+FULL_TABLE_BATCHES = 8  # unseen-id batches at most to fill phase (i)'s table
+OPT_STEPS = (3, 3)  # warm-up and measured steps of phase (j)
+REPEAT_STEPS = 5  # steps of each run of phase (k)
+FUSED_STEPS = 3  # steps of phase (l)
+# Fused vs dict path losses on the card: the same forward on the same
+# embeddings, split from the tables' occurrences instead of combined per
+# column. Bit-equal in the reading on an H100 (3 steps), as were
+# two runs of the dict path (phase (k)); the bound leaves a few float32
+# ulps for a GEMM that picks another algorithm.
+FUSED_LOSS_RTOL = 1e-6
+# P2 vs its plain version, normal initializers: the same float32
+# operations in the same order, logf/cosf/sqrtf on both sides; the bound
+# leaves two float32 ulps at |z| = 2 (times the scale).
+INIT_ATOL = 5e-7
+FUSED_TIMED_STEPS = (3, 10)  # warm-up and timed steps of each run in (l)
 # Card vs CPU loss of the small float32 config over three steps: GEMM
 # sums and the atomics of the rows' backward run in another order.
 # About 17x the reading on an H100 (max abs diff 5.96e-8, both
@@ -184,7 +228,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from deeprec_tpu_torch.ops.kernels import build
-    names = ("gather_rows", "sparse_apply")
+    names = build.KERNELS
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(build.load_library, n) for n in names]:
@@ -358,6 +402,283 @@ def compare_gather(label: str, values, slots, admitted=None, bank=None,
     return rec
 
 
+def event_ms(fn, reps: int = 5) -> float:
+    """Time of one call of ``fn`` between CUDA events, the median over
+    ``reps`` calls after an untimed one, for functions that read the
+    card from the host (the plain probe), which a CUDA graph cannot
+    capture; the host's waits count."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def captured_probes():
+    """Record the operands of every probe the lookups make (``variable``
+    calls them through the module), still running P1: ("insert", the
+    key rows as they were before the call, qhi, qlo, insert mask,
+    max_probes) or ("find", key rows, qhi, qlo, None, max_probes)."""
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    calls = []
+    insert_fn, find_fn = ht.find_or_insert, ht.find
+
+    def insert(table, qhi, qlo, insert_mask, max_probes=64, max_rounds=128):
+        calls.append(("insert", table.key_rows.clone(), qhi.clone(),
+                      qlo.clone(), insert_mask.to(torch.bool).clone(),
+                      max_probes))
+        return insert_fn(table, qhi, qlo, insert_mask, max_probes,
+                         max_rounds)
+
+    def find(table, qhi, qlo, max_probes=64):
+        calls.append(("find", table.key_rows, qhi.clone(), qlo.clone(),
+                      None, max_probes))
+        return find_fn(table, qhi, qlo, max_probes)
+
+    ht.find_or_insert, ht.find = insert, find
+    try:
+        yield calls
+    finally:
+        ht.find_or_insert, ht.find = insert_fn, find_fn
+
+
+def _plain_rounds(fn):
+    """(result of ``fn()``, straggler rounds the plain probe ran)."""
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    rounds = [0]
+    compact = ht._compact
+
+    def counting(*args):
+        rounds[0] += 1
+        return compact(*args)
+
+    ht._compact = counting
+    try:
+        return fn(), rounds[0]
+    finally:
+        ht._compact = compact
+
+
+def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
+                  max_probes: int, time_it: bool = True) -> dict:
+    """P1 (``kind`` "insert" or "find") on these operands against its
+    plain version, each on its own copy of the key rows ``rows0``:
+    slots, ``is_new`` and key rows must be equal. With ``time_it``:
+    device times (an insert restores the key rows before each call, and
+    that copy's time is taken off; the fast round apart, ``max_rounds``
+    1), the plain version's event-fenced time (its host reads included)
+    and the bound: the key rows the ids' windows touch (each row once:
+    the bucket rows of all real ids, the wide windows of the ids the
+    fast round left pending) plus the ids, mask, slots, flags and
+    written keys, over the card's memory rate."""
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.ops.kernels import hash_probe
+    from deeprec_tpu_torch.utils import keys as keylib
+    n = qhi.numel()
+    n_rows, row = rows0.shape
+    W = row // 2
+    capacity = n_rows * W
+    R = ht._wide_rows(rows0, max_probes)
+    real = qhi != keylib.EMPTY_HI
+    starts = ht._start_slots(qhi, qlo, capacity)
+    found, _, _, _, saw_empty = ht._scan_fast(rows0, qhi, qlo, starts)
+    if kind == "find":
+        got = ht.find(ht.HashTable(rows0), qhi, qlo, max_probes)
+        want, rounds = _plain_rounds(lambda: ht.find_reference(
+            ht.HashTable(rows0), qhi, qlo, max_probes))
+        if not torch.equal(got, want):
+            raise AssertionError(f"P1 find {label}: slots differ from the "
+                                 f"plain version")
+        pending = real & ~found & ~saw_empty & (n_rows > 1)
+        per_id, new = 12, 0
+    else:
+        kt, pt = ht.HashTable(rows0.clone()), ht.HashTable(rows0.clone())
+        _, ks, kn = ht.find_or_insert(kt, qhi, qlo, mask, max_probes)
+        (_, ps, pn), rounds = _plain_rounds(
+            lambda: ht.find_or_insert_reference(pt, qhi, qlo, mask,
+                                                max_probes))
+        if not (torch.equal(ks, ps) and torch.equal(kn, pn)
+                and torch.equal(kt.key_rows, pt.key_rows)):
+            raise AssertionError(f"P1 insert {label}: slots, is_new or key "
+                                 f"rows differ from the plain version")
+        _, s1, _ = ht.find_or_insert_reference(
+            ht.HashTable(rows0.clone()), qhi, qlo, mask, max_probes,
+            max_rounds=1)
+        pending = real & (s1 == capacity) & (mask | ~saw_empty)
+        per_id, new = 14, int(kn.sum())
+        got = ks
+    r0 = (starts // W).long()
+    touched = [r0[real]]
+    if bool(pending.any()):
+        ahead = torch.arange(R, device=r0.device)
+        touched.append(((r0[pending][:, None] + ahead[None, :]) % n_rows)
+                       .reshape(-1))
+    n_touched = int(torch.unique(torch.cat(touched)).numel())
+    nbytes = n_touched * row * 4 + per_id * n + 8 * new
+    rec = {"max_abs_err": 0.0, "library_ms": None, "n": n,
+           "pending_after_fast": int(pending.sum()), "rounds": rounds,
+           "rows_touched": n_touched, "bound_ms": bound_ms(nbytes),
+           "missing": int((real & (got >= capacity)).sum()), "new": new}
+    if not time_it:
+        return rec
+    if kind == "find":
+        rec["ms"] = median_ms(lambda: hash_probe.find(rows0, qhi, qlo, R))
+        rec["plain_ms"] = event_ms(lambda: ht.find_reference(
+            ht.HashTable(rows0), qhi, qlo, max_probes))
+        split = ""
+    else:
+        M = ht._straggler_budget(n)
+        work = rows0.clone()
+        claim = hash_probe.claim_buffer(capacity, rows0.device)
+
+        def run(rounds):
+            work.copy_(rows0)
+            hash_probe.find_or_insert(work, qhi, qlo, mask, claim, R, M,
+                                      rounds)
+
+        copy = median_ms(lambda: work.copy_(rows0))
+        rec["ms"] = median_ms(lambda: run(128)) - copy
+        rec["fast_ms"] = median_ms(lambda: run(1)) - copy
+        rec["straggler_ms"] = rec["ms"] - rec["fast_ms"]
+        rec["plain_ms"] = event_ms(lambda: (
+            work.copy_(rows0), ht.find_or_insert_reference(
+                ht.HashTable(work), qhi, qlo, mask, max_probes))) - copy
+        split = (f" (fast round {rec['fast_ms']:.4f}, straggler kernel "
+                 f"{rec['straggler_ms']:.4f})")
+    log(f"phase {label}: P1 {kind} [{capacity} slots], n={n}, "
+        f"{rec['pending_after_fast']} pending after the fast round, "
+        f"{rounds} straggler rounds, {new} inserted, {rec['missing']} "
+        f"real ids without a slot, {n_touched} key rows touched: kernel "
+        f"{rec['ms']:.4f} ms{split}, plain {rec['plain_ms']:.4f} ms (host "
+        f"reads included), "
+        f"bound {rec['bound_ms']:.4f} ms ({_pct(rec)}); equal to the plain "
+        f"version")
+    return rec
+
+
+def compare_probes(label: str, calls, time_it: bool = True) -> list:
+    """:func:`compare_probe` on every recorded probe call."""
+    return [compare_probe(f"{label} {kind}", kind, rows0, qhi, qlo, mask,
+                          max_probes, time_it)
+            for kind, rows0, qhi, qlo, mask, max_probes in calls]
+
+
+@contextlib.contextmanager
+def captured_inits():
+    """Record the operands of every fresh-row draw the training lookups
+    make (``variable`` calls ``init_rows.init_fresh`` through the
+    module), still launching P2: (the values as they were before the
+    call, fresh, slots, qhi, qlo, initializer, scale, salt)."""
+    from deeprec_tpu_torch.ops.kernels import init_rows
+    calls = []
+    kernel_fn = init_rows.init_fresh
+
+    def recording(values, *args):
+        calls.append((values.clone(),) + tuple(
+            a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return kernel_fn(values, *args)
+
+    init_rows.init_fresh = recording
+    try:
+        yield calls
+    finally:
+        init_rows.init_fresh = kernel_fn
+
+
+def compare_init(label: str, values0, fresh, slots, qhi, qlo, initializer,
+                 scale, salt) -> dict:
+    """P2 on a lookup's own operands against its plain version, each on
+    its own copy of ``values0``: the largest difference over the whole
+    table, within ``INIT_ATOL`` (times the scale) for the normal kinds,
+    zero for the others. Device times of both (repeated calls write the
+    same rows) and the bound: the fresh flags, the slot and id of every
+    fresh entry and each distinct fresh row written once."""
+    from deeprec_tpu_torch.ops.kernels import init_rows
+    args = (fresh, slots, qhi, qlo, initializer, scale, salt)
+    got, want = values0.clone(), values0.clone()
+    init_rows.init_fresh(got, *args)
+    init_rows.init_fresh_reference(want, *args)
+    err = float((got.float() - want.float()).abs().max())
+    atol = (INIT_ATOL * scale
+            if initializer in ("normal", "truncated_normal") else 0.0)
+    if not err <= atol:
+        raise AssertionError(f"init_fresh {label}: differs from its plain "
+                             f"version by {err} (bound {atol})")
+    C1, D = values0.shape
+    on = fresh & (slots < C1 - 1)
+    n, n_fresh = fresh.numel(), int(on.sum())
+    rows = int(torch.unique(slots[on]).numel())
+    nbytes = n + 12 * n_fresh + rows * D * values0.element_size()
+    rec = {"max_abs_err": err, "library_ms": None, "n": n,
+           "fresh": n_fresh, "rows": rows,
+           "ms": median_ms(lambda: init_rows.init_fresh(got, *args)),
+           "plain_ms": median_ms(
+               lambda: init_rows.init_fresh_reference(want, *args)),
+           "bound_ms": bound_ms(nbytes)}
+    del got, want
+    log(f"phase {label}: init_fresh [{C1}, {D}] {initializer}, n={n}, "
+        f"{n_fresh} fresh entries, {rows} fresh rows: kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({_pct(rec)}); max abs difference from "
+        f"the plain version {err:.3g}")
+    return rec
+
+
+def unseen_batch(tr, k: int):
+    """The trainer's next batch from its stream with every categorical id
+    moved by ``k * 2**56``, past any id the stream draws: every key is
+    new to the tables (and to the batches of every other ``k``)."""
+    raw = tr.data.next_batch_np(wide=tr.wide)
+    raw = {key: v + (k << 56) if key.startswith("C") else v
+           for key, v in raw.items()}
+    return tr.group.pack_batch_np(raw, tr.device)
+
+
+def capture_without_sync(label: str, what: str, fn) -> None:
+    """``fn`` captured in a CUDA graph and not replayed: capture fails on
+    any host read or synchronizing call, which makes it a second witness
+    beside ``set_sync_debug_mode``, one that misses none. The operands
+    must exist before (nothing ``fn`` allocates outlives the graph)."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    del graph
+    torch.cuda.synchronize()
+    log(f"phase {label}: {what} captured in a CUDA graph: no host sync")
+
+
+def lookups_without_sync(label: str, group, states, batch,
+                         step=None) -> None:
+    """The lookups of ``batch`` (training lookups at ``step``, else the
+    serving lookups) under ``set_sync_debug_mode("error")``: any host
+    read raises."""
+    from deeprec_tpu_torch.embedding import variable as ev
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if step is not None:
+            group.lookup_train(states, batch, step)
+        else:
+            for tname, tcols in group._columns_by_table().items():
+                hi, lo, _ = group._packed_view(batch, tname, tcols)
+                ev.lookup(group.tables[tname], states[tname],
+                          hi.reshape(-1), lo.reshape(-1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"phase {label}: the lookups ran under set_sync_debug_mode('error'):"
+        f" no host sync")
+
+
 def phase_state(ckpt_dir: str):
     """Fill the reference-shape tables and save a full checkpoint."""
     from deeprec_tpu_torch.data.criteo import (CRITEO_HASH_BUCKETS,
@@ -413,13 +734,14 @@ def phase_state(ckpt_dir: str):
 
 def phase_serving(parts, raw, ckpt_dir: str):
     """Restore and score through the kernel; returns (logits, launches)."""
-    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe
     from deeprec_tpu_torch.serving import wdl_entry
     from deeprec_tpu_torch.serving.processor import ServingModel
 
     group = parts["group"]
     batch = group.pack_batch_np(raw, "cpu")
     gather.launches = 0                       # the main path starts here
+    hash_probe.launches["find"] = 0
     t0 = time.perf_counter()
     serving = ServingModel(group, parts["apply_fn"], parts["ts_template"],
                            ckpt_dir)
@@ -432,15 +754,17 @@ def phase_serving(parts, raw, ckpt_dir: str):
         out = serving.predict(batch)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t1)
-    launches = gather.launches                # the main path ends here
-    if launches < 1:
-        raise AssertionError("the serving path launched no gather_rows")
+    launches = {"gather_rows": gather.launches,
+                "hash_probe_find": hash_probe.launches["find"]}
+    if min(launches.values()) < 1:            # the main path ends here
+        raise AssertionError(f"the serving path did not launch every "
+                             f"kernel: {launches}")
     if out.shape != (BATCH,) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
     log(f"phase 5 serving: restored version {version} in {restore_s:.3f} s; "
         f"batch {BATCH} latency first {lat[0] * 1e3:.3f} ms, median of "
-        f"the rest {np.median(lat[1:]) * 1e3:.3f} ms; gather_rows "
-        f"launches {launches}")
+        f"the rest {np.median(lat[1:]) * 1e3:.3f} ms; launches "
+        f"{launches}")
 
     # The same state scored with the plain gather: ``variable.lookup``
     # calls ``gather.gather_rows`` through the module, so rebinding it
@@ -456,11 +780,14 @@ def phase_serving(parts, raw, ckpt_dir: str):
         raise AssertionError(f"kernel path vs plain gather: max abs logit "
                              f"diff {float((out - plain).abs().max())}")
     log("phase 5 serving: kernel path vs plain gather, identical logits")
-    with captured_gathers() as calls:
+    with captured_gathers() as calls, captured_probes() as probes:
         serving.predict(batch)
     for args in calls:
         compare_gather("5 serving fetch", *args)
-    del calls
+    finds = compare_probes("5 serving probe", probes)
+    del calls, probes
+    lookups_without_sync("5 serving", group, serving._ts.ev,
+                         group.pack_batch_np(raw, "cuda"))
 
     t0 = time.perf_counter()
     cpu = wdl_entry.build({"device": "cpu", "reference_shapes": True})
@@ -474,7 +801,7 @@ def phase_serving(parts, raw, ckpt_dir: str):
     log(f"phase 5 serving: CPU restore and scoring of {SMALL} rows agree, "
         f"max abs logit diff {float((out[:SMALL].cpu() - ref).abs().max())}"
         f" ({time.perf_counter() - t0:.3f} s)")
-    return out, launches
+    return out, launches, finds
 
 
 def phase_worker(raw, logits, ckpt_dir: str):
@@ -743,18 +1070,27 @@ def _table_shapes(tr) -> str:
 
 
 def _compare_step_kernels(tr, kind, label, batch):
-    """K1 on ``batch``'s own lookup operands and K2/K3 on its gradients,
-    each against its plain version and timed. Returns (fetch records,
-    apply records)."""
-    with captured_gathers() as calls:
+    """K1 on ``batch``'s own lookup operands, P1 on its probes (then on
+    the same batch's probes again, every key present), P2 on its
+    fresh-row draws and K2/K3 on its gradients, each against its plain
+    version and timed. Returns (fetch records, apply records, probe
+    records, draw records)."""
+    with captured_gathers() as calls, captured_probes() as probes, \
+            captured_inits() as inits:
         gl, grads = _step_grads(tr, batch)
     fetch = [compare_gather(f"{label} same lookup", *args)
              for args in calls]
-    del calls
+    probe = compare_probes(f"{label} step's probe", probes)
+    draws = [compare_init(f"{label} step's draw", *args) for args in inits]
+    del calls, probes, inits
     recs = [compare_apply(kind, *ops, f"{label} same gradients",
                           time_it=True)
             for ops in _step_applies(tr, kind, gl, grads)]
-    return fetch, recs
+    del gl, grads
+    with captured_probes() as probes:
+        tr.group.lookup_train(tr.ts.ev, batch, tr.ts.step)
+    compare_probes(f"{label} same batch again", probes)
+    return fetch, recs, probe, draws
 
 
 def phase_train(kind: str, label: str, warmup: int, steps: int,
@@ -764,9 +1100,9 @@ def phase_train(kind: str, label: str, warmup: int, steps: int,
     launch counts over the timed run, then K1 on one more step's own
     lookup operands and kernel vs plain applies from that step's
     gradients. Returns (trainer, run summary, apply records, fetch
-    records, launches)."""
+    records, launches, probe records)."""
     from deeprec_tpu_torch import bench
-    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
 
     t0 = time.perf_counter()
@@ -775,9 +1111,14 @@ def phase_train(kind: str, label: str, warmup: int, steps: int,
     kname = f"{kind}_apply_rows"
     gather.launches = 0                       # the main path starts here
     sa.launches[kname] = 0
+    hash_probe.launches["find_or_insert"] = 0
+    init_rows.launches = 0
     out = bench.bench_device(tr, warmup=warmup, steps=steps)
     launches = {"gather_rows": gather.launches,
                 kname: sa.launches[kname]}    # the main path ends here
+    if not build_kw.get("static_buckets"):    # static tables never probe
+        launches["hash_probe_insert"] = hash_probe.launches["find_or_insert"]
+        launches["init_fresh_rows"] = init_rows.launches
     if min(launches.values()) < 1:
         raise AssertionError(f"the training path did not launch every "
                              f"kernel: {launches}")
@@ -788,10 +1129,26 @@ def phase_train(kind: str, label: str, warmup: int, steps: int,
         f"{[round(x, 6) for x in out['losses']]}; n_overflow per step "
         f"{out['n_overflow']}; launches {launches}")
 
+    batch = tr.next_batch()
+    draws = []
+    if kind == "adagrad" and not build_kw:    # the headline
+        lookups_without_sync(label, tr.group, tr.ts.ev, unseen_batch(tr, 1),
+                             step=tr.ts.step)
+        ub = unseen_batch(tr, 2)
+        capture_without_sync(
+            label, "the lookups of a headline step on an unseen batch",
+            lambda: tr.group.lookup_train(tr.ts.ev, ub, tr.ts.step))
+        # P2 where every row of the batch is fresh.
+        with captured_inits() as inits:
+            tr.group.lookup_train(tr.ts.ev, unseen_batch(tr, 3), tr.ts.step)
+        draws = [compare_init(f"{label} unseen batch's draw", *args)
+                 for args in inits]
+        del inits
     # The same gradients through the kernel and through the plain
     # version, on copies of the trained tables.
-    fetch, recs = _compare_step_kernels(tr, kind, label, tr.next_batch())
-    return tr, out, recs, fetch, launches
+    fetch, recs, probes, step_draws = _compare_step_kernels(tr, kind, label,
+                                                            batch)
+    return tr, out, recs, fetch, launches, probes, draws + step_draws
 
 
 def phase_checkpoint(tr, ckpt_dir: str):
@@ -944,7 +1301,7 @@ def phase_e2e(tmp: str):
     from deeprec_tpu_torch.data import criteo
     from deeprec_tpu_torch.embedding import variable as ev
     from deeprec_tpu_torch.feature_column.feature_column import batch_to
-    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
 
     path = os.path.join(tmp, "criteo.tsv")
@@ -988,9 +1345,13 @@ def phase_e2e(tmp: str):
 
     gather.launches = 0                       # the e2e path starts here
     sa.launches["adagrad_apply_rows"] = 0
+    hash_probe.launches["find_or_insert"] = 0
+    init_rows.launches = 0
     out = bench.bench_e2e(tr, n_rows=n_rows, path=path)
     launches = {"gather_rows": gather.launches,
-                "adagrad_apply_rows": sa.launches["adagrad_apply_rows"]}
+                "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
+                "hash_probe_insert": hash_probe.launches["find_or_insert"],
+                "init_fresh_rows": init_rows.launches}
     if min(launches.values()) < 1:            # the e2e path ends here
         raise AssertionError(f"the e2e path did not launch every kernel: "
                              f"{launches}")
@@ -1000,9 +1361,189 @@ def phase_e2e(tmp: str):
         f"n_overflow per step {out['n_overflow']}; live keys per table "
         f"{[ev.num_live(st) for st in tr.ts.ev.values()]}; launches "
         f"{launches}")
-    batch = batch_to(next(bench.e2e_batches(tr, path)), tr.device)
-    fetch, recs = _compare_step_kernels(tr, "adagrad", "14 (h)", batch)
-    return fetch, recs, launches
+    batches = bench.e2e_batches(tr, path)
+    batch = batch_to(next(batches), tr.device)
+    lookups_without_sync("14 (h)", tr.group, tr.ts.ev,
+                         batch_to(next(batches), tr.device), step=tr.ts.step)
+    fetch, recs, probes, draws = _compare_step_kernels(tr, "adagrad",
+                                                       "14 (h)", batch)
+    return fetch, recs, launches, probes, draws
+
+
+def phase_probe(device="cuda", capacity: int = 1 << 19,
+                n: int = 294912) -> dict:
+    """(i) P1 against its plain version on every case of
+    ``tests/torch_probe_cases.py`` (the CPU tests' cases), then on a
+    65-wide table of the headline's capacity (2**19 slots) fed batches
+    of 294,912 unseen ids until it is full, timed on the next batch
+    (every id then runs to the round cap) and on a lookup of it.
+    Returns the full-table insert record."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_probe_cases as pc
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.utils import keys as keylib
+    dev = torch.device(device)
+
+    def ids_of(a):
+        hi, lo = keylib.split_ids(np.asarray(a, np.int64))
+        return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+
+    t0 = time.perf_counter()
+    n_ops = 0
+    for name, (cap, ops) in pc.cases().items():
+        table = ht.create(cap, dev)
+        for op in ops:
+            n_ops += 1
+            if op[0] == "remove":
+                table.key_rows.copy_(torch.from_numpy(pc.tombstone(
+                    table.key_rows.cpu().numpy(), op[1])).to(dev))
+                continue
+            hi, lo = ids_of(op[1])
+            mask = (torch.from_numpy(op[2]).to(dev) if op[0] == "insert"
+                    else None)
+            compare_probe(f"15 (i) {name}", op[0], table.key_rows.clone(),
+                          hi, lo, mask, 64, time_it=False)
+            if op[0] == "insert":
+                ht.find_or_insert(table, hi, lo, mask)
+    log(f"phase 15 (i): P1 equal to its plain version on "
+        f"{len(pc.cases())} cases, {n_ops} operations "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    rng = np.random.default_rng(11)
+    table = ht.create(capacity, dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    live, b = 0, 0
+    while True:
+        hi, lo = ids_of(rng.integers(1, 2**62, size=n))
+        last = live == capacity or b == FULL_TABLE_BATCHES
+        rec = compare_probe(f"15 (i) 65-wide batch {b}", "insert",
+                            table.key_rows.clone(), hi, lo, mask, 64,
+                            time_it=last)
+        ht.find_or_insert(table, hi, lo, mask)
+        live = int(ht.live_mask(table).sum())
+        log(f"phase 15 (i): 65-wide table batch {b}: {rec['new']} inserted, "
+            f"{rec['rounds']} straggler rounds, {live} of {capacity} slots "
+            f"live")
+        if last:
+            compare_probe("15 (i) 65-wide table", "find", table.key_rows,
+                          hi, lo, None, 64)
+            hi, lo = ids_of(rng.integers(1, 2**62, size=n))
+            capture_without_sync(
+                "15 (i)", "find_or_insert of unseen ids into the full table "
+                "(every id to the round cap)",
+                lambda: ht.find_or_insert(table, hi, lo, mask))
+            return rec
+        b += 1
+
+
+def phase_optimizers():
+    """(j) the headline path with each optimizer beyond Adagrad and
+    Adam, a few full-width steps each; AdamAsync must launch K3, every
+    one P1."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.ops.kernels import hash_probe
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    from deeprec_tpu_torch.optimizers import sparse as sopt
+    opts = {"sgd": sopt.SparseSGD(),
+            "adagrad_decay": sopt.SparseAdagradDecay(),
+            "adam_async": sopt.SparseAdamAsync(),
+            "adam_async_original": sopt.SparseAdamAsync(
+                apply_sparse_adam=False),
+            "ftrl": sopt.SparseFtrl(), "ftrl_v2": sopt.SparseFtrlV2()}
+    for name, opt in opts.items():
+        tr = bench.build_wdl(device="cuda", sparse_opt=opt)
+        sa.launches["adam_apply_rows"] = 0    # this path starts here
+        hash_probe.launches["find_or_insert"] = 0
+        out = bench.bench_device(tr, *OPT_STEPS)
+        launches = {"hash_probe_insert": hash_probe.launches["find_or_insert"],
+                    "adam_apply_rows": sa.launches["adam_apply_rows"]}
+        if launches["hash_probe_insert"] < 1 or (
+                name.startswith("adam_async")
+                and launches["adam_apply_rows"] < 1):  # and ends here
+            raise AssertionError(f"(j) {name}: launches {launches}")
+        log(f"phase 16 (j): {name}: {sum(OPT_STEPS)} headline steps, "
+            f"{out['value']:.1f} samples/s ({out['step_ms']:.3f} ms/step) "
+            f"over the last {OPT_STEPS[1]}; losses "
+            f"{[round(x, 6) for x in out['losses']]}; launches {launches}")
+        del tr
+        _release()
+
+
+def phase_fused_and_repeat():
+    """(k) the headline model trained twice from the same state on the
+    same 5 batches: whether losses and tables are bit-equal is logged,
+    not gated (ROADMAP fault 3.2). (l) the fused combine
+    (``combine_tables`` + ``apply_fn_fused``) against the dict path for
+    3 steps on those batches: a trainer's state and model, with a step
+    made with ``combine_fn=group.combine_tables`` and the fused
+    apply; then the step time of both, in turns."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.models import wdl
+    from deeprec_tpu_torch.train.loop import make_train_step
+
+    def run(tr, raws):
+        ts, losses = tr.ts, []
+        for raw in raws:   # each group packs its own batch
+            ts, m = tr.step(ts, tr.group.pack_batch_np(raw, tr.device))
+            losses.append(m["loss"])
+        tr.ts = ts
+        return [float(x) for x in losses]
+
+    a = bench.build_wdl(device="cuda")
+    raws = [a.data.next_batch_np(wide=a.wide) for _ in range(REPEAT_STEPS)]
+    la = run(a, raws)
+    b = bench.build_wdl(device="cuda")
+    lb = run(b, raws)
+    short = {t: f"{t.split(':')[0]}[{st.values.shape[1]}]"
+             for t, st in a.ts.ev.items()}
+    same = {short[t]: torch.equal(st.values, b.ts.ev[t].values)
+            for t, st in a.ts.ev.items()}
+    diff = {short[t]: float((st.values - b.ts.ev[t].values).abs().max())
+            for t, st in a.ts.ev.items()}
+    log(f"phase 17 (k): two runs of {REPEAT_STEPS} headline steps from the "
+        f"same state: losses {'bit-equal' if la == lb else 'differ'} "
+        f"({la} vs {lb}); tables bit-equal {same}; max abs row "
+        f"difference {diff}")
+    del b
+    _release()
+    f = bench.build_wdl(device="cuda")
+    f.step = make_train_step(f.group, wdl.apply_fn_fused(f.model, f.group),
+                             f.loss_fn, f.sparse_opt, f.dense_opt,
+                             combine_fn=f.group.combine_tables)
+    lf = run(f, raws[:FUSED_STEPS])
+    rel = [abs(x - y) / abs(y) for x, y in zip(lf, la)]
+    log(f"phase 18 (l): fused combine vs dict path, {FUSED_STEPS} headline "
+        f"steps: losses {lf} vs {la[:FUSED_STEPS]}, relative differences "
+        f"{rel}")
+    if not max(rel) <= FUSED_LOSS_RTOL:
+        raise AssertionError(f"(l) fused vs dict losses differ by {rel}")
+    # Step time of each path, in turns (dict, fused, fused, dict) on the
+    # same batches: the first run of each takes them unseen, the second
+    # seen.
+    more = [a.data.next_batch_np(wide=a.wide) for _ in range(8)]
+    packed = {id(t): [t.group.pack_batch_np(r, t.device) for r in more]
+              for t in (a, f)}
+
+    def timed(tr):
+        ts, batches = tr.ts, packed[id(tr)]
+        warm, steps = FUSED_TIMED_STEPS
+        for b in batches[:warm]:
+            ts, _ = tr.step(ts, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            ts, _ = tr.step(ts, batches[(warm + i) % len(batches)])
+        torch.cuda.synchronize()
+        tr.ts = ts
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    ms = [(name, timed(tr)) for name, tr in
+          (("dict", a), ("fused", f), ("fused", f), ("dict", a))]
+    log(f"phase 18 (l): mean step ms over {FUSED_TIMED_STEPS[1]} steps "
+        f"after {FUSED_TIMED_STEPS[0]}, in turns: "
+        + ", ".join(f"{name} {t:.3f}" for name, t in ms))
+    del a, f
+    _release()
 
 
 def _record(name, source, replaces, launches, err, rec, path):
@@ -1013,15 +1554,34 @@ def _record(name, source, replaces, launches, err, rec, path):
             "library_ms": rec.get("library_ms"), "path": path}
 
 
+def _probe_record(path, launches, probes, kind="insert"):
+    """P1 on one path: launches from its run, times and bound from its
+    largest probe operands."""
+    suffix = "" if path == "headline" else f"[{path}]"
+    name = "hash_probe_" + ("find" if kind == "find" else "insert")
+    return _record(name + suffix, "deeprec_tpu_torch/csrc/hash_probe.cu",
+                   "deeprec_tpu/embedding/hash_table.py:" + (
+                       "256" if kind == "find" else "311"),
+                   launches[name], 0.0,
+                   max(probes, key=lambda r: r["bound_ms"]), path)
+
+
 def _path_records(path, launches, fetch, applies, gather_err, apply_err,
-                  kind="adagrad"):
-    """K1 and the sparse apply of one training path: launches from its
-    timed run, times and bound from its largest operands."""
+                  kind="adagrad", probes=None, draws=None):
+    """K1, P1 and P2 (where the path probes and draws) and the sparse
+    apply of one training path: launches from its timed run, times and
+    bound from its largest operands."""
     src = "deeprec_tpu_torch/csrc/"
     pallas = "deeprec_tpu/ops/pallas/"
     suffix = "" if path == "headline" else f"[{path}]"
     kname = f"{kind}_apply_rows"
-    return [
+    return ([_probe_record(path, launches, probes)] if probes else []) + (
+        [_record("init_fresh_rows" + suffix, src + "init_rows.cu",
+                 "deeprec_tpu/embedding/variable.py:446",
+                 launches["init_fresh_rows"],
+                 max(r["max_abs_err"] for r in draws),
+                 max(draws, key=lambda r: r["bound_ms"]), path)]
+        if draws else []) + [
         _record("gather_rows" + suffix, src + "gather_rows.cu",
                 pallas + "gather.py:72", launches["gather_rows"],
                 max([gather_err] + [r["max_abs_err"] for r in fetch]),
@@ -1046,42 +1606,58 @@ def main():
     phase_build()
     gather_err = phase_kernel()
     apply_err = phase_apply_kernels()
+    full_table = phase_probe()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ckpt_dir:
         parts, raw = phase_state(ckpt_dir)
-        logits, _ = phase_serving(parts, raw, ckpt_dir)
+        logits, serve_launches, finds = phase_serving(parts, raw, ckpt_dir)
         del parts
         torch.cuda.empty_cache()
         phase_worker(raw, logits, ckpt_dir)
-    tr, _, k2, k1, launches = phase_train("adagrad", "8 (b)", 30, 30)
+    tr, _, k2, k1, launches, p1, i1 = phase_train("adagrad", "8 (b)", 30,
+                                                  30)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
         phase_checkpoint(tr, d)
     del tr
     _release()
-    tr, _, k3, _, adam_launches = phase_train("adam", "10 (c)",
-                                              *ADAM_STEPS)
+    tr, _, k3, _, adam_launches, _, _ = phase_train("adam", "10 (c)",
+                                                 *ADAM_STEPS)
     del tr
     _release()
     phase_small()
-    tr, _, s2, s1, s_launches = phase_train("adagrad", "12 (f)", 30, 30,
-                                            static_buckets=True)
+    tr, _, s2, s1, s_launches, _, _ = phase_train("adagrad", "12 (f)", 30,
+                                                  30,
+                                               static_buckets=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_static_") as d:
         phase_static_serve_and_checkpoint(tr, d)
     del tr
     _release()
-    tr, _, d2, d1, d_launches = phase_train(
+    tr, _, d2, d1, d_launches, dp, di = phase_train(
         "adagrad", "13 (g)", *DIM16_STEPS, reference_shapes=False)
     del tr
     _release()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as d:
-        e1, e2, e_launches = phase_e2e(d)
+        e1, e2, e_launches, ep, ei = phase_e2e(d)
+    _release()
+    phase_optimizers()
+    phase_fused_and_repeat()
+    full_table["path"] = "full 65-wide table"
     records = (
-        _path_records("headline", launches, k1, k2, gather_err, apply_err)
+        _path_records("headline", launches, k1, k2, gather_err, apply_err,
+                      probes=p1, draws=i1)
         + _path_records("headline", adam_launches, k1, k3, gather_err,
                         apply_err, kind="adam")[1:]
+        + [_probe_record("serving", serve_launches, finds, kind="find")]
         + _path_records("static_bucket", s_launches, s1, s2, gather_err,
                         apply_err)
-        + _path_records("dim16", d_launches, d1, d2, gather_err, apply_err)
-        + _path_records("e2e", e_launches, e1, e2, gather_err, apply_err))
+        + _path_records("dim16", d_launches, d1, d2, gather_err, apply_err,
+                        probes=dp, draws=di)
+        + _path_records("e2e", e_launches, e1, e2, gather_err, apply_err,
+                        probes=ep, draws=ei))
+    log(f"P1 on the full 65-wide table (phase 15): kernel "
+        f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
+        f" straggler kernel {full_table['straggler_ms']:.4f}), plain "
+        f"{full_table['plain_ms']:.4f} ms, bound {full_table['bound_ms']:.4f}"
+        f" ms, {full_table['rounds']} straggler rounds")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

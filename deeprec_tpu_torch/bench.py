@@ -80,6 +80,7 @@ class Trainer:
     step: Callable
     sparse_opt: Any
     dense_opt: dense_lib.Adagrad
+    model: wdl.WDL  # the towers' module (``ts.params`` hold its weights)
     apply_fn: Callable
     loss_fn: Callable
     device: torch.device
@@ -96,32 +97,44 @@ def _loss(out, batch):
     return losses.bce_with_logits(out, batch["label"])
 
 
-def _assemble(cols, hidden, dtype, device, sparse_opt: str, data, *,
+def _sparse_opt(sparse_opt):
+    """An optimizer object as it is; a name through ``make``, "adagrad"
+    at the headline's learning rate 0.05, the others at their
+    defaults."""
+    if not isinstance(sparse_opt, str):
+        return sparse_opt
+    if sparse_opt == "adagrad":
+        return sparse_lib.make("adagrad", learning_rate=0.05)
+    return sparse_lib.make(sparse_opt)
+
+
+def _assemble(cols, hidden, dtype, device, sparse_opt, data, *,
               wide: bool, metric: str) -> Trainer:
     device = torch.device(device)
     group = EmbeddingGroup(cols, coalesce=True)
     model = wdl.WDL(wdl.input_width(group), hidden=hidden, dtype=dtype,
                     device=device)
     init_dense(model, torch.Generator().manual_seed(0))
-    sopt = (sparse_lib.make("adagrad", learning_rate=0.05)
-            if sparse_opt == "adagrad" else sparse_lib.make(sparse_opt))
+    sopt = _sparse_opt(sparse_opt)
     dopt = dense_lib.Adagrad(0.05)
     ts = trainlib.create_train_state(group, model.state_dict(), dopt, sopt,
                                      device)
     afn = wdl.apply_fn(model, group)
     step = trainlib.make_train_step(group, afn, _loss, sopt, dopt)
     return Trainer(group=group, data=data, ts=ts, step=step,
-                   sparse_opt=sopt, dense_opt=dopt, apply_fn=afn,
-                   loss_fn=_loss, device=device, wide=wide, metric=metric)
+                   sparse_opt=sopt, dense_opt=dopt, model=model,
+                   apply_fn=afn, loss_fn=_loss, device=device, wide=wide,
+                   metric=metric)
 
 
 def build_wdl(reference_shapes: bool = True, device="cuda",
-              sparse_opt: str = "adagrad",
+              sparse_opt="adagrad",
               static_buckets: bool = False) -> Trainer:
     """The ``bench.py`` WDL at B = 16,384: reference shapes (the
     headline; with ``static_buckets``, the static row), or uniform dim
-    16 over ids of a 200,000 vocabulary. ``sparse_opt``: "adagrad" (lr
-    0.05, the headline) or "adam" (``SparseAdam`` defaults)."""
+    16 over ids of a 200,000 vocabulary. ``sparse_opt``: a name of
+    ``optimizers.sparse.BY_NAME`` ("adagrad": lr 0.05, the headline;
+    the others at their defaults) or an optimizer object."""
     evo = cfglib.EmbeddingVariableOption(record_freq=False,
                                          record_version=False)
     cols = wdl.criteo_columns(embedding_dim=16, capacity=1 << 20,

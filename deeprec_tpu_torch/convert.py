@@ -2,8 +2,10 @@
 
 Dense params: a flax params tree (nested dicts of numpy arrays) maps to
 the port's state dict; a Dense ``kernel [in, out]`` becomes
-``weight [out, in]``. Table state: every ``EVState`` field is copied as
-it is, so the port probes the same slots and reads the same rows.
+``weight [out, in]``, and any other leaf (a bias, a bare parameter such
+as ``w``) keeps its name and layout. Table state: every ``EVState``
+field is copied as it is, so the port probes the same slots and reads
+the same rows.
 Optimizer state: the sparse optimizers' slot trees are the same dicts
 of arrays on both sides, and optax's Adagrad state
 ``(ScaleByRssState(sum_of_squares=tree), EmptyState())`` maps to the
@@ -26,7 +28,7 @@ EV_FIELDS = ("key_rows", "values", "freqs", "versions", "default_bank",
 
 def wdl_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """Flax params tree -> state dict (``deep/dense_0/kernel`` ->
-    ``deep.dense_0.weight``, transposed; biases as they are)."""
+    ``deep.dense_0.weight``, transposed; other leaves as they are)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix, node):
@@ -36,11 +38,8 @@ def wdl_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
             elif k == "kernel":
                 out[".".join(prefix + ["weight"])] = torch.from_numpy(
                     np.array(np.asarray(v).T, order="C"))
-            elif k == "bias":
-                out[".".join(prefix + ["bias"])] = torch.from_numpy(
-                    np.array(v))
             else:
-                raise KeyError(f"unexpected flax leaf {'/'.join(prefix + [k])}")
+                out[".".join(prefix + [k])] = torch.from_numpy(np.array(v))
 
     walk([], tree)
     return out
@@ -57,10 +56,8 @@ def wdl_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         arr = t.detach().cpu().numpy()
         if leaf == "weight":
             node["kernel"] = np.ascontiguousarray(arr.T)
-        elif leaf == "bias":
-            node["bias"] = arr
         else:
-            raise KeyError(f"unexpected parameter {name}")
+            node[leaf] = arr
     return tree
 
 

@@ -12,9 +12,15 @@ converted from the JAX package probes the same slots:
   * Inserts inside one batch are serialized by a scatter-min claim: the
     lowest batch index wins a slot, losers go to the next round.
 
-Where JAX runs ``lax.while_loop`` this port runs a Python loop gated on
-``.any()``, one host sync per round. ``find_or_insert`` writes keys
-into ``table.key_rows`` in place.
+On CUDA tensors ``find`` and ``find_or_insert`` run the hand-written
+probe kernel P1 (``ops/kernels/hash_probe.py``, ``csrc/hash_probe.cu``),
+which keeps every round on the card, as the JAX package's
+``lax.while_loop`` does: no host read. On CPU tensors they run the plain
+versions here (``find_reference``, ``find_or_insert_reference``), whose
+rounds a Python loop drives, gated on ``.any()`` (one host read a
+round); the tests hold them against the JAX package and
+``chip_smoke.py`` holds the kernel against them. ``find_or_insert``
+writes keys into ``table.key_rows`` in place.
 
 Slot convention: valid slots are ``0 .. capacity-1``; ``capacity`` is
 the not-found / overflow sentinel.
@@ -23,9 +29,11 @@ the not-found / overflow sentinel.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from deeprec_tpu_torch.ops.kernels import hash_probe
 from deeprec_tpu_torch.utils import keys as keylib
 
 BUCKET_W = 64
@@ -38,6 +46,10 @@ class HashTable:
     ``+1`` (lo), with ``W = min(64, capacity)``."""
 
     key_rows: torch.Tensor  # [capacity // W, 2*W] int32, interleaved
+    # P1's claim buffer ([capacity + 1] int32, free between calls), made
+    # at the table's first insert on the card.
+    claim: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def capacity(self) -> int:
@@ -115,6 +127,13 @@ def _scan_fast(key_rows, qhi, qlo, starts):
     return _match_logic(kp, qhi, qlo, pos, n_rows * W)
 
 
+def _wide_rows(key_rows, max_probes: int) -> int:
+    """Bucket rows of the straggler window: at least ``WIDE_ROWS`` and
+    ``max_probes`` slots, at most the whole table."""
+    n_rows, row_elems = key_rows.shape
+    return min(n_rows, max(WIDE_ROWS, -(-max_probes // (row_elems // 2))))
+
+
 def _scan_wide(key_rows, qhi, qlo, starts, max_probes: int):
     """Straggler rescan: ``R`` consecutive bucket rows per id with
     row-granular wraparound from the aligned ``starts``."""
@@ -122,7 +141,7 @@ def _scan_wide(key_rows, qhi, qlo, starts, max_probes: int):
     W = row_elems // 2
     capacity = n_rows * W
     n = qhi.shape[0]
-    R = min(n_rows, max(WIDE_ROWS, -(-max_probes // W)))
+    R = _wide_rows(key_rows, max_probes)
     dev = key_rows.device
     r0 = starts // W
     ridx = (r0[:, None] + torch.arange(R, dtype=torch.int32, device=dev)
@@ -161,7 +180,19 @@ def _write_keys(key_rows, widx, qhi, qlo):
 
 def find(table: HashTable, qhi, qlo, max_probes: int = 64):
     """Lookup only. Returns slots [n] int32; ``capacity`` if absent.
-    EMPTY-sentinel ids (padding) return ``capacity``."""
+    EMPTY-sentinel ids (padding) return ``capacity``. CUDA tensors go
+    through the P1 kernel, CPU tensors through :func:`find_reference`."""
+    if table.key_rows.device.type == "cpu":
+        return find_reference(table, qhi, qlo, max_probes)
+    return hash_probe.find(table.key_rows, qhi.contiguous(),
+                           qlo.contiguous(),
+                           _wide_rows(table.key_rows, max_probes))
+
+
+def find_reference(table: HashTable, qhi, qlo, max_probes: int = 64):
+    """Plain version of :func:`find`, on any device: the fast scan,
+    then straggler rounds over compacted pending ids while any is
+    pending (a host read a round)."""
     capacity = table.capacity
     n = qhi.shape[0]
     buckets = _start_slots(qhi, qlo, capacity)
@@ -197,8 +228,30 @@ def find_or_insert(table: HashTable, qhi, qlo, insert_mask,
     true for exactly one occurrence. Returns ``(table, slots, is_new)``
     with ``table`` the argument, updated in place. ``slots`` is
     ``capacity`` for not-found / overflow / sentinel ids; callers must
-    initialize the row data of ``is_new`` slots.
+    initialize the row data of ``is_new`` slots. CUDA tensors go through
+    the P1 kernel, CPU tensors through :func:`find_or_insert_reference`.
     """
+    if table.key_rows.device.type == "cpu":
+        return find_or_insert_reference(table, qhi, qlo, insert_mask,
+                                        max_probes, max_rounds)
+    if table.claim is None:
+        table.claim = hash_probe.claim_buffer(table.capacity,
+                                              table.key_rows.device)
+    slots, is_new = hash_probe.find_or_insert(
+        table.key_rows, qhi.contiguous(), qlo.contiguous(),
+        insert_mask.to(torch.bool).contiguous(), table.claim,
+        _wide_rows(table.key_rows, max_probes),
+        _straggler_budget(qhi.shape[0]), max_rounds)
+    return table, slots, is_new
+
+
+def find_or_insert_reference(table: HashTable, qhi, qlo, insert_mask,
+                             max_probes: int = 64, max_rounds: int = 128):
+    """Plain version of :func:`find_or_insert`, on any device: the fast
+    round, then straggler rounds over the first ``_straggler_budget(n)``
+    pending ids in ascending order while any is pending and fewer than
+    ``max_rounds`` rounds ran (a host read a round, and more inside
+    it)."""
     n = qhi.shape[0]
     capacity = table.capacity
     key_rows = table.key_rows

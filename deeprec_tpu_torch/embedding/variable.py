@@ -28,6 +28,7 @@ import torch
 from deeprec_tpu_torch import config as cfglib
 from deeprec_tpu_torch.embedding import hash_table as ht
 from deeprec_tpu_torch.ops.kernels import gather
+from deeprec_tpu_torch.ops.kernels import init_rows as init_kernel
 from deeprec_tpu_torch.utils import keys as keylib
 from deeprec_tpu_torch.utils import stateless_random as srand
 
@@ -204,20 +205,6 @@ def _compact(rep, rep_token, is_real, tokens, U: int):
     return pick, inverse, n_overflow
 
 
-def _init_fresh(cfg: cfglib.TableConfig, values, fresh, slots, qhi, qlo,
-                salt: int):
-    """Write initializer rows at ``slots[fresh]`` (unique). One host
-    sync: only the fresh ids are drawn, where the JAX package draws
-    rows for every id inside a ``while_loop`` gated on any being
-    fresh."""
-    idx = torch.nonzero(fresh).reshape(-1)
-    if idx.numel() == 0:
-        return
-    rows = srand.init_rows(cfg.initializer, qhi[idx], qlo[idx], cfg.dim,
-                           cfg.init_scale, salt=salt)
-    values[slots[idx].to(torch.int64)] = rows.to(values.dtype)
-
-
 def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
                      global_step: int, salt: int = 0,
                      budget: Optional[int] = None
@@ -301,7 +288,8 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         # inserted beyond the budget and reused slots alike.
         raw_prev = state.versions[usafe]
         u_new = u_in & ((raw_prev < 0) | u_new)
-        _init_fresh(cfg, state.values, u_new, uslots, uhi, ulo, salt)
+        init_kernel.init_fresh(state.values, u_new, uslots, uhi, ulo,
+                               cfg.initializer, cfg.init_scale, salt)
         prev_versions = torch.where(u_new, global_step, raw_prev)
         widx, ok = _drop_idx(uslots, capacity)
         state.versions.index_put_((widx,), torch.where(
@@ -309,7 +297,10 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
     else:
         # LightHeader mode: rows initialize at insert time, at the
         # occurrence level so beyond-budget inserts initialize too.
-        _init_fresh(cfg, state.values, is_new, slots, qhi, qlo, salt)
+        # ``is_new`` marks one occurrence of each inserted id, which
+        # draws its row once.
+        init_kernel.init_fresh(state.values, is_new, slots, qhi, qlo,
+                               cfg.initializer, cfg.init_scale, salt)
         u_new = u_in & u_new
         prev_versions = torch.full(uslots.shape, global_step,
                                    dtype=torch.int32, device=dev)

@@ -7,7 +7,8 @@ id halves; static hash-bucket tables of one dim class share a matrix,
 told apart by row offsets), id transforms, host-side batch packing
 with the full and the compact wire format, state and optimizer-slot
 creation, and the single-device training side: the per-table training
-lookup with its unique budget, the fused combine and the sparse
+lookup with its unique budget, the per-column combine (one gather per
+table), the fused per-table combine (``combine_tables``) and the sparse
 optimizer apply.
 
 Batch convention:
@@ -441,11 +442,12 @@ class EmbeddingGroup:
         return states, GroupLookup(lks=lks, columns=cols,
                                    budget_overflow=budget_overflow)
 
-    def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
-        """``rows[table]`` -> per-column bag embeddings [B, dim],
-        differentiable in ``rows``. One per-occurrence gather per table
-        (one backward scatter-add per table, not one per column)."""
-        out = {}
+    @staticmethod
+    def _occurrences(gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+        """Per physical table: ``(items, occ, msk)`` with ``items`` its
+        ``(column name, ColumnLookup)`` pairs, ``occ`` the masked rows of
+        every occurrence ``[B, L_total, dim]`` (one gather per table,
+        one backward scatter-add per table) and ``msk`` its mask."""
         by_tbl: Dict[str, list] = {}
         for cname, cl in gl.columns.items():
             by_tbl.setdefault(cl.table_name, []).append((cname, cl))
@@ -453,7 +455,13 @@ class EmbeddingGroup:
             r = rows[tname]
             inv = torch.cat([cl.inverse for _, cl in items], dim=1)
             msk = torch.cat([cl.mask for _, cl in items], dim=1)
-            occ = r[inv] * msk[..., None].to(r.dtype)
+            yield tname, items, r[inv] * msk[..., None].to(r.dtype), msk
+
+    def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+        """``rows[table]`` -> per-column bag embeddings [B, dim],
+        differentiable in ``rows``."""
+        out = {}
+        for _, items, occ, msk in self._occurrences(gl, rows):
             off = 0
             for cname, cl in items:
                 w = cl.inverse.shape[1]
@@ -462,6 +470,23 @@ class EmbeddingGroup:
                     cl.column.combiner)
                 off += w
         return out
+
+    def combine_tables(self, gl: GroupLookup,
+                       rows: Dict[str, torch.Tensor]):
+        """Fused per-table combine: one masked occurrence tensor per
+        physical table, without the per-column split, for models that
+        take whole-table matrices (``wdl.apply_fn_fused``). Every member
+        column must be a width-1 bag column (single-valued fields, where
+        the combiner does not matter); raises ``ValueError`` otherwise.
+        Returns ``{table: ([B, n_cols, dim] rows, [column names])}``,
+        differentiable in ``rows`` as :meth:`combine` is."""
+        for cname, cl in gl.columns.items():
+            if cl.inverse.shape[1] != 1:
+                raise ValueError(
+                    f"combine_tables: column {cname!r} is not a width-1 "
+                    "unweighted bag column; use combine()")
+        return {tname: (occ, [cname for cname, _ in items])
+                for tname, items, occ, _ in self._occurrences(gl, rows)}
 
     def apply_gradients(self, opt, slot_states, states, gl: GroupLookup,
                         grad_rows: Dict[str, torch.Tensor], global_step: int,

@@ -117,3 +117,33 @@ def apply_fn(module: WDL, group: EmbeddingGroup):
         return torch.func.functional_call(
             module, params, (embs, group.numeric_features(batch)))
     return fn
+
+
+def apply_fn_fused(module: WDL, group: EmbeddingGroup):
+    """Apply over ``group.combine_tables`` output, for ``wide_in_deep``
+    column sets: each table's [B, n_cols, dim] occurrence tensor is split
+    into its columns' [B, dim] embeddings, which go through the dict
+    path's forward, so the same params give the same outputs, bit for
+    bit. Use with ``make_train_step(..., combine_fn=group.combine_tables)``.
+    (The JAX package's version gathers one [B, total] matrix through
+    index maps instead, which saves XLA the column slices; in eager
+    PyTorch the gathers and their accumulating backward cost more than
+    the slices they replace.)
+
+    Raises ``ValueError`` for a column set with separate ``*_wide``
+    columns, whose channel 0 is not a wide weight. (The JAX package's
+    ``apply_fn_fused`` takes such a set and silently reads channel 0 of
+    every deep embedding as a wide weight.)"""
+    wide_cols = [c.name for c in group.embedding if c.name.endswith("_wide")]
+    if wide_cols:
+        raise ValueError(
+            f"apply_fn_fused needs the wide weight in channel 0 of each "
+            f"column (wide_in_deep); this column set has separate wide "
+            f"columns {wide_cols[:3]}: use apply_fn")
+
+    def fn(params, tbl_embs, batch):
+        embs = {cname: occ[:, j] for occ, cols in tbl_embs.values()
+                for j, cname in enumerate(cols)}
+        return torch.func.functional_call(
+            module, params, (embs, group.numeric_features(batch)))
+    return fn

@@ -32,10 +32,14 @@ HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "native")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-# Flags of one kernel on top of NVCC_FLAGS. The optimizer applies keep
-# every multiply and add separately rounded, as their plain PyTorch
-# versions do, so the two can be compared for equality.
-KERNEL_FLAGS = {"sparse_apply": ("--fmad=false",)}
+# The kernel libraries of the port, one ``csrc/<name>.cu`` each: K1, K2
+# and K3, the hash probe P1 and the fresh-row draw P2.
+KERNELS = ("gather_rows", "sparse_apply", "hash_probe", "init_rows")
+# Flags of one kernel on top of NVCC_FLAGS. The optimizer applies and the
+# fresh-row draw keep every multiply and add separately rounded, as their
+# plain PyTorch versions do, so the two can be compared for equality.
+KERNEL_FLAGS = {"sparse_apply": ("--fmad=false",),
+                "init_rows": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}

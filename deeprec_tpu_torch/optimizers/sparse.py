@@ -1,23 +1,28 @@
 """Sparse per-row optimizer applies for EmbeddingVariables.
 
-Port of ``deeprec_tpu/optimizers/sparse.py`` for ``SparseAdagrad`` and
-``SparseAdam``. Slot rows share the primary's slot index: slot arrays
-are ``[capacity+1, dim]`` parallel to ``EVState.values``. Rows the
-feature filter did not admit get no update, and rows inserted this step
-start from fresh slot values (``lk.is_new``).
+Port of ``deeprec_tpu/optimizers/sparse.py``: SGD (gradient descent),
+Adagrad, AdagradDecay, Adam, AdamAsync, Ftrl and FtrlV2. Slot rows
+share the primary's slot index: slot arrays are ``[capacity+1, dim]``
+parallel to ``EVState.values``. Rows the feature filter did not admit
+get no update, and rows inserted this step start from fresh slot values
+(``lk.is_new``). Every apply updates the table and its slot rows in
+place; the JAX package returns new arrays.
 
-``apply`` runs one hand-written kernel per table and call
-(``ops/kernels/sparse_apply.py``: K2 for Adagrad, K3 for Adam), which
-updates the table and its slot rows in place; the JAX package returns
-new arrays. The kernel reads each updated row's weight from ``values``
+Adagrad, Adam and AdamAsync run one hand-written kernel per table and
+call (``ops/kernels/sparse_apply.py``: K2 for Adagrad, K3 for both
+Adams). The kernel reads each updated row's weight from ``values``
 where the JAX package reads ``lk.rows``. The two are equal for every
 updated row: ``lookup_train_occ`` fetches admitted rows from
 ``values`` and nothing writes ``values`` between the lookup and the
 apply. The exception is a dynamic-dimension table (``block_num > 1``),
-whose rows are masked after the fetch: ``apply`` raises for it.
+whose rows are masked after the fetch: these three raise for it.
 
-SGD, AdagradDecay, AdamAsync, Ftrl and FtrlV2 are not ported yet;
-``make`` raises ``NotImplementedError`` naming them.
+SGD, AdagradDecay and Ftrl have no Pallas kernel in the JAX package,
+which leaves them to XLA; here they are plain PyTorch on the device of
+the table. They read ``lk.rows``, as the JAX package does, and write
+through the sentinel-row index of ``variable._drop_idx``: rows that are
+not updated write row C's own content back to it, so row C never
+changes.
 """
 
 from __future__ import annotations
@@ -28,19 +33,59 @@ from typing import Optional
 import torch
 
 from deeprec_tpu_torch import config as cfglib
-from deeprec_tpu_torch.embedding.variable import LookupResult
+from deeprec_tpu_torch.embedding.variable import LookupResult, _drop_idx
 from deeprec_tpu_torch.ops.kernels import sparse_apply
 
 
 def _gate(cfg: cfglib.TableConfig, lk: LookupResult):
-    """Update mask: admitted rows inside the table. (The JAX package
-    also returns the dropping scatter and safe gather indices; the
-    kernels take the mask and index by slot themselves.)"""
+    """Update mask of a kernel apply: admitted rows inside the table.
+    (The JAX package also returns the dropping scatter and safe gather
+    indices; the kernels take the mask and index by slot themselves.)"""
     if cfg.block_num > 1:
         raise NotImplementedError(
-            f"table {cfg.name}: sparse applies on dynamic-dimension tables "
-            "(block_num > 1) are not ported")
+            f"table {cfg.name}: kernel applies (Adagrad, Adam, AdamAsync) "
+            "on dynamic-dimension tables (block_num > 1) are not ported")
     return lk.admitted & (lk.slots < cfg.capacity)
+
+
+def _plain_gate(cfg: cfglib.TableConfig, lk: LookupResult):
+    """(idx, upd, safe) of a plain apply: the int64 write index (the
+    slot of an updated row, row C for the others), the update mask and
+    the gather index ``min(slot, C)``."""
+    idx, upd = _drop_idx(lk.slots, cfg.capacity, lk.admitted)
+    return idx, upd, torch.clamp(lk.slots, max=cfg.capacity).to(torch.int64)
+
+
+def _fresh(slot_arr, safe, is_new, init_value: float):
+    """Slot rows at ``safe``, reset to ``init_value`` where ``is_new``."""
+    cur = slot_arr[safe]
+    return torch.where(is_new[:, None], torch.full_like(cur, init_value), cur)
+
+
+def _put(dst, idx, upd, rows):
+    """``dst[idx] = rows`` for updated rows; the others write row C's
+    own content back to row C."""
+    C = dst.shape[0] - 1
+    dst.index_put_((idx,), torch.where(upd[:, None], rows.to(dst.dtype),
+                                       dst[C]))
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseSGD:
+    """KvResourceSparseApplyGradientDescent analog."""
+
+    learning_rate: float = 0.01
+
+    def init(self, cfg: cfglib.TableConfig, device):
+        return {}
+
+    def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
+              global_step: int, lr: Optional[float] = None):
+        """In place; returns ``(slot_state, values)``."""
+        lr = self.learning_rate if lr is None else lr
+        idx, upd, _ = _plain_gate(cfg, lk)
+        _put(values, idx, upd, lk.rows - lr * grad_rows)
+        return slot_state, values
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +109,44 @@ class SparseAdagrad:
             values, slot_state["accum"], lk.slots, grad_rows.contiguous(),
             lr, update=upd, is_new=lk.is_new,
             init_acc=self.initial_accumulator_value)
+        return slot_state, values
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAdagradDecay:
+    """AdagradDecay: the accumulator decays by ``decay_rate`` every
+    ``decay_step`` global steps, floored at ``decay_baseline``. Sparse
+    rows decay lazily by the whole decay periods since their last touch
+    (``lk.prev_versions``)."""
+
+    learning_rate: float = 0.05
+    initial_accumulator_value: float = 0.1
+    decay_step: int = 10000
+    decay_rate: float = 0.9
+    decay_baseline: float = 1e-7
+
+    def init(self, cfg: cfglib.TableConfig, device):
+        return {"accum": torch.full((cfg.capacity + 1, cfg.dim),
+                                    self.initial_accumulator_value,
+                                    dtype=torch.float32, device=device)}
+
+    def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
+              global_step: int, lr: Optional[float] = None):
+        """In place; returns ``(slot_state, values)``."""
+        lr = self.learning_rate if lr is None else lr
+        idx, upd, safe = _plain_gate(cfg, lk)
+        g = grad_rows.to(torch.float32)
+        acc = _fresh(slot_state["accum"], safe, lk.is_new,
+                     self.initial_accumulator_value)
+        prev = torch.clamp(lk.prev_versions, min=0)
+        periods = ((global_step // self.decay_step)
+                   - prev // self.decay_step).to(torch.float32)
+        decay = torch.pow(torch.full_like(periods, self.decay_rate), periods)
+        acc = torch.clamp(acc * decay[:, None], min=self.decay_baseline)
+        acc = acc + g * g
+        w = lk.rows.to(torch.float32) - lr * g * torch.rsqrt(acc)
+        _put(slot_state["accum"], idx, upd, acc)
+        _put(values, idx, upd, w)
         return slot_state, values
 
 
@@ -98,24 +181,96 @@ class SparseAdam:
         lr = self.learning_rate if lr is None else lr
         b1p = slot_state["beta1_power"]
         b2p = slot_state["beta2_power"]
-        alpha = (lr * torch.sqrt(1 - b2p) / (1 - b1p)).reshape(1)
         sparse_apply.adam_apply_rows(
             values, slot_state["m"], slot_state["v"], lk.slots,
-            grad_rows.contiguous(), alpha, self.beta1, self.beta2,
-            self.epsilon, update=upd, is_new=lk.is_new)
+            grad_rows.contiguous(), self._alpha(lr, b1p, b2p), self.beta1,
+            self.beta2, self.epsilon, update=upd, is_new=lk.is_new)
         return {**slot_state, "beta1_power": b1p * self.beta1,
                 "beta2_power": b2p * self.beta2}, values
 
+    def _alpha(self, lr, b1p, b2p):
+        """K3's step size, a one-element tensor on the card: the
+        bias-corrected learning rate."""
+        return (lr * torch.sqrt(1 - b2p) / (1 - b1p)).reshape(1)
 
-BY_NAME = {"adagrad": SparseAdagrad, "adam": SparseAdam}
-_NOT_PORTED = {"sgd": "SparseSGD", "gradient_descent": "SparseSGD",
-               "adagrad_decay": "SparseAdagradDecay",
-               "adam_async": "SparseAdamAsync", "ftrl": "SparseFtrl",
-               "ftrl_v2": "SparseFtrlV2"}
+
+@dataclasses.dataclass(frozen=True)
+class SparseAdamAsync(SparseAdam):
+    """AdamAsync: with ``apply_sparse_adam=True`` the arithmetic of
+    :class:`SparseAdam`; with False the original form, alpha = the
+    learning rate (no bias correction). The beta powers advance after
+    every apply either way."""
+
+    apply_sparse_adam: bool = True
+
+    def _alpha(self, lr, b1p, b2p):
+        if self.apply_sparse_adam:
+            return super()._alpha(lr, b1p, b2p)
+        if isinstance(lr, torch.Tensor):
+            return lr.to(torch.float32).reshape(1)
+        return torch.full((1,), lr, dtype=torch.float32, device=b1p.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseFtrl:
+    """KvResourceSparseApplyFtrl analog; ``l2_shrinkage`` > 0 gives the
+    FtrlV2 variant."""
+
+    learning_rate: float = 0.1
+    learning_rate_power: float = -0.5
+    initial_accumulator_value: float = 0.1
+    l1: float = 0.0
+    l2: float = 0.0
+    l2_shrinkage: float = 0.0
+
+    def init(self, cfg: cfglib.TableConfig, device):
+        shape = (cfg.capacity + 1, cfg.dim)
+        return {"accum": torch.full(shape, self.initial_accumulator_value,
+                                    dtype=torch.float32, device=device),
+                "linear": torch.zeros(shape, dtype=torch.float32,
+                                      device=device)}
+
+    def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
+              global_step: int, lr: Optional[float] = None):
+        """In place; returns ``(slot_state, values)``."""
+        lr = self.learning_rate if lr is None else lr
+        idx, upd, safe = _plain_gate(cfg, lk)
+        g = grad_rows.to(torch.float32)
+        w = lk.rows.to(torch.float32)
+        acc = _fresh(slot_state["accum"], safe, lk.is_new,
+                     self.initial_accumulator_value)
+        lin = _fresh(slot_state["linear"], safe, lk.is_new, 0.0)
+        g_shrink = g + 2.0 * self.l2_shrinkage * w
+        new_acc = acc + g * g
+        p = -self.learning_rate_power
+        sigma = (torch.pow(new_acc, p) - torch.pow(acc, p)) / lr
+        lin = lin + g_shrink - sigma * w
+        quad = torch.pow(new_acc, p) / lr + 2.0 * self.l2
+        new_rows = torch.where(torch.abs(lin) > self.l1,
+                               (torch.sign(lin) * self.l1 - lin) / quad, 0.0)
+        _put(slot_state["accum"], idx, upd, new_acc)
+        _put(slot_state["linear"], idx, upd, lin)
+        _put(values, idx, upd, new_rows)
+        return slot_state, values
+
+
+def SparseFtrlV2(**kw):
+    """FtrlV2 = Ftrl with gradient L2-shrinkage (reference op
+    ``KvResourceSparseApplyFtrlV2``)."""
+    kw.setdefault("l2_shrinkage", 1e-3)
+    return SparseFtrl(**kw)
+
+
+BY_NAME = {
+    "sgd": SparseSGD,
+    "gradient_descent": SparseSGD,
+    "adagrad": SparseAdagrad,
+    "adagrad_decay": SparseAdagradDecay,
+    "adam": SparseAdam,
+    "adam_async": SparseAdamAsync,
+    "ftrl": SparseFtrl,
+}
 
 
 def make(name: str, **kw):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sparse optimizer {name!r} ({_NOT_PORTED[name]}) is not ported")
     return BY_NAME[name](**kw)

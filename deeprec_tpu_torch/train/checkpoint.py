@@ -9,8 +9,9 @@ table shard. ``dense.npz`` keys its leaves by JAX tree-path strings:
 for the dense Adagrad state (optax's ``(ScaleByRssState, EmptyState)``).
 A table file holds the 4-tensor EV format (keys/values/freqs/versions)
 plus the sparse optimizer's state: its row-aligned slot arrays as
-``slot/['accum']`` (or ``slot/['m']``, ``slot/['v']``), one row per key,
-and its other leaves as ``scalar/['beta1_power']`` and the like. A
+``slot/['<name>']`` (``accum``; ``m`` and ``v``; ``accum`` and
+``linear``), one row per key, and its other leaves as
+``scalar/['beta1_power']``, ``scalar/['beta2_power']``. A
 static hash-bucket table is saved in full on every save, incremental
 ones included, keyed by row index. The JAX package and the port read
 each other's checkpoints, optimizer state included.

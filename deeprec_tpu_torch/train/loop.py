@@ -2,15 +2,16 @@
 
 Port of ``TrainState``, ``create_train_state`` and the single-device
 branches of ``make_train_step`` and ``make_eval_step`` from
-``deeprec_tpu/train/loop.py`` (``mesh=None``, ``micro_batch_num=1``,
-the default ``group.combine``). Sharded steps, micro-batching and
+``deeprec_tpu/train/loop.py`` (``mesh=None``, ``micro_batch_num=1``;
+the combine is ``group.combine`` or a ``combine_fn`` such as
+``group.combine_tables``). Sharded steps, micro-batching and
 ``make_epoch_step`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -47,7 +48,8 @@ def create_train_state(group: EmbeddingGroup, params: Dict[str, torch.Tensor],
 
 def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
                     loss_fn: Callable, sparse_opt, dense_opt,
-                    micro_batch_num: int = 1):
+                    micro_batch_num: int = 1,
+                    combine_fn: Optional[Callable] = None):
     """``(TrainState, batch) -> (TrainState, metrics)``: lookup, combine,
     forward, loss ``sum(per_example) / B``, backward into the dense
     params and into each table's unique rows, dense and sparse applies.
@@ -60,7 +62,14 @@ def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
     on the device the state lives on. ``metrics`` holds the loss and the
     ids the unique budgets dropped (``n_overflow``), as 0-dim tensors on
     that device.
+
+    ``combine_fn`` overrides ``group.combine``: pass
+    ``group.combine_tables`` with a matching fused ``apply_fn``
+    (``wdl.apply_fn_fused``) to hand the model each table's occurrences
+    in one tensor; it requires ``micro_batch_num == 1``.
     """
+    if combine_fn is not None and micro_batch_num != 1:
+        raise ValueError("combine_fn requires micro_batch_num == 1")
     if micro_batch_num != 1:
         raise NotImplementedError(
             "micro_batch_num > 1 (gradient accumulation over micro-batches) "
@@ -73,7 +82,8 @@ def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
                 for t, lk in gl.lks.items()}
         params = {k: v.detach().requires_grad_()
                   for k, v in ts.params.items()}
-        out = apply_fn(params, group.combine(gl, rows), batch)
+        combine = combine_fn if combine_fn is not None else group.combine
+        out = apply_fn(params, combine(gl, rows), batch)
         per_ex = loss_fn(out, batch)
         loss = per_ex.sum() / per_ex.shape[0]
         names, tables = list(params), list(rows)

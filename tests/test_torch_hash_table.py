@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_probe_cases as probe_cases
 from deeprec_tpu.embedding import hash_table as jht
 from deeprec_tpu_torch.embedding import hash_table as tht
 from deeprec_tpu_torch.utils import keys as tkeys
@@ -33,7 +34,7 @@ def _step(jtab, ttab, ids, insert_mask=None):
             else insert_mask)
     jtab, jslots, jnew = _jinsert(jtab, jnp.asarray(hi), jnp.asarray(lo),
                                   jnp.asarray(mask))
-    ttab, tslots, tnew = tht.find_or_insert(
+    ttab, tslots, tnew = tht.find_or_insert_reference(
         ttab, torch.from_numpy(hi), torch.from_numpy(lo),
         torch.from_numpy(mask))
     np.testing.assert_array_equal(ttab.key_rows.numpy(),
@@ -46,7 +47,8 @@ def _step(jtab, ttab, ids, insert_mask=None):
 def _find_both(jtab, ttab, ids):
     hi, lo = tkeys.split_ids(ids)
     want = np.asarray(_jfind(jtab, jnp.asarray(hi), jnp.asarray(lo)))
-    got = tht.find(ttab, torch.from_numpy(hi), torch.from_numpy(lo))
+    got = tht.find_reference(ttab, torch.from_numpy(hi),
+                             torch.from_numpy(lo))
     np.testing.assert_array_equal(got.numpy(), want)
     return got.numpy()
 
@@ -118,3 +120,29 @@ def test_single_row_table():
     ids = _pad(np.arange(40, dtype=np.int64) * 3, 64)
     jtab, ttab, _, _ = _step(jtab, ttab, ids)
     _find_both(jtab, ttab, ids)
+
+
+PROBE_CASES = probe_cases.cases()
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_probe_cases_match_jax(name):
+    """The shared probe cases (straggler-heavy batches, one crowded
+    bucket row, more ids pending than a round takes, a table run into
+    the 128-round cap, tombstones, lookup-only ids, sentinels): slots,
+    is_new and key rows bit-exact after every operation."""
+    capacity, ops = PROBE_CASES[name]
+    jtab, ttab = _fresh(capacity)
+    for op in ops:
+        if op[0] == "insert":
+            jtab, ttab, _, _ = _step(jtab, ttab, op[1], op[2])
+        elif op[0] == "find":
+            _find_both(jtab, ttab, op[1])
+        else:
+            sel = np.zeros(capacity, bool)
+            sel[op[1]] = True
+            jtab = jht.remove_slots(jtab, jnp.asarray(sel))
+            ttab.key_rows.copy_(torch.from_numpy(probe_cases.tombstone(
+                ttab.key_rows.numpy(), op[1])))
+            np.testing.assert_array_equal(ttab.key_rows.numpy(),
+                                          np.asarray(jtab.key_rows))

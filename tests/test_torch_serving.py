@@ -250,7 +250,12 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.ops.kernels.sparse_apply, deeprec_tpu_torch.bench, "
         "deeprec_tpu_torch.train.checkpoint, deeprec_tpu_torch.train.loop, "
         "deeprec_tpu_torch.optimizers.dense, deeprec_tpu_torch.native, "
-        "deeprec_tpu_torch.data.prefetch\n"
+        "deeprec_tpu_torch.data.prefetch, "
+        "deeprec_tpu_torch.ops.kernels.hash_probe, "
+        "deeprec_tpu_torch.ops.kernels.init_rows, "
+        "deeprec_tpu_torch.embedding.hash_table, "
+        "deeprec_tpu_torch.optimizers.sparse, "
+        "deeprec_tpu_torch.feature_column.feature_column\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'deeprec_tpu')]\n"

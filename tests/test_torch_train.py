@@ -207,18 +207,18 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="CBF"):
         tev.create(tcfg.TableConfig(name="c", dim=4, capacity=64,
                                     ev_option=cbf), "cpu")
-    with pytest.raises(NotImplementedError, match="SparseFtrl"):
-        tsopt.make("ftrl")
     cfg = tcfg.TableConfig(name="d", dim=4, capacity=64, block_num=2,
                            dyn_dim_thresholds=(2,))
     st = tev.create(cfg, "cpu")
     hi = torch.zeros(3, dtype=torch.int32)
     lo = torch.arange(3, dtype=torch.int32)
     st, occ = tev.lookup_train_occ(cfg, st, hi, lo, 0)
-    opt = tsopt.SparseAdagrad()
-    with pytest.raises(NotImplementedError, match="block_num"):
-        opt.apply(cfg, opt.init(cfg, "cpu"), st.values, occ.lk,
-                  torch.zeros_like(occ.lk.rows), 0)
+    # The kernel applies read values, which a dynamic-dimension table
+    # masks after the fetch.
+    for opt in (tsopt.SparseAdagrad(), tsopt.SparseAdamAsync()):
+        with pytest.raises(NotImplementedError, match="block_num"):
+            opt.apply(cfg, opt.init(cfg, "cpu"), st.values, occ.lk,
+                      torch.zeros_like(occ.lk.rows), 0)
     with pytest.raises(NotImplementedError, match="micro_batch_num"):
         tloop.make_train_step(None, None, None, opt, None,
                               micro_batch_num=2)

@@ -25,7 +25,11 @@ a batch no step has seen, as the e2e row's steps do. After
    each step's time and ``n_overflow``;
 2. counts the host syncs of one step: ``torch.cuda.set_sync_debug_mode``
    warns at every operation that waits for the card, and the warnings
-   are counted by the operation that raised them;
+   are counted by the operation that raised them; with cycled batches,
+   it also prints, for each batch and table, how many ids the probe's
+   fast round left pending, how many straggler rounds they took and
+   how many found no slot (the plain version's rounds, counted on a
+   copy of the table);
 3. runs ``torch.profiler`` over 5 steps with spans around the layers:
    probe (``hash_table.find_or_insert``), fetch (K1, ``gather_rows``),
    lookup (the rest of ``lookup_train_occ``: first-occurrence dedup,
@@ -174,10 +178,35 @@ def count_syncs(step, ts, batch):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     for w in caught:
-        if "synchroniz" not in str(w.message):
+        # Skip the notice that the sync debug mode is a prototype, which
+        # setting the mode itself raises.
+        msg = str(w.message)
+        if "synchroniz" not in msg or "prototype" in msg:
             continue
         counts[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"] += 1
     return ts, counts
+
+
+def probe_report(tr, batches) -> None:
+    """Per cycled batch and table: ids pending after the probe's fast
+    round, straggler rounds, ids without a slot. Every key the tables
+    can hold is in after the warm-up, so the lookups change nothing."""
+    import chip_smoke
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.utils import keys as keylib
+    for i, b in enumerate(batches):
+        with chip_smoke.captured_probes() as calls:
+            tr.group.lookup_train(tr.ts.ev, b, tr.ts.step)
+        for _, rows0, qhi, qlo, mask, max_probes in calls:
+            table = ht.HashTable(rows0.clone())
+            (_, slots, _), rounds = chip_smoke._plain_rounds(
+                lambda: ht.find_or_insert_reference(table, qhi, qlo, mask,
+                                                    max_probes))
+            unplaced = int(((qhi != keylib.EMPTY_HI)
+                            & (slots >= table.capacity)).sum())
+            print(f"probe: batch {i}, table of {table.capacity} slots: "
+                  f"{rounds} straggler rounds, {unplaced} ids without a "
+                  f"slot", flush=True)
 
 
 def e2e_batches(tr, n: int) -> list:
@@ -247,6 +276,9 @@ def main():
     print(f"host syncs in one step: {sum(syncs.values())}", flush=True)
     for where, n in syncs.most_common():
         print(f"host syncs: {n} at {where}", flush=True)
+    if not args.fresh:
+        tr.ts = ts
+        probe_report(tr, batches)
 
     # Spans need the model's apply_fn wrapped, which the step captured
     # when it was made: make a step of the same parts around it.
