@@ -10,7 +10,12 @@ non-zero:
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: the ``gather_rows``, ``sparse_apply``, ``hash_probe`` and
    ``init_rows`` kernels from ``deeprec_tpu_torch/csrc``
-   (``build.KERNELS``), one ``nvcc`` each, in parallel.
+   (``build.KERNELS``), one ``nvcc`` each, in parallel; beside them
+   ``tools/init_rows_one_element.cu``, whose SASS gives the
+   instructions an element of P2's draw takes at least (the shortest
+   path through it; P2's arithmetic bound:
+   instructions x elements over the SMs' issue rate, 4 schedulers of
+   32 lanes an SM at the card's maximum SM clock).
 3. K1 against its plain PyTorch version on the card, exact (a gather is
    a copy), at the serving shapes with uniform slots and at edge cases
    (``EDGE_WIDTHS``, bf16 at odd D, n below a warp, ragged and empty,
@@ -53,13 +58,18 @@ non-zero:
    and on the same batch again, every key then present); that step's
    row gradients, taken once, are applied by K2 to one copy of the
    tables and by the plain version to another, compared, and both
-   timed. The kernels' record takes K1's, K2's, P1's and P2's times
-   from here.
+   timed, beside ``torch.optim.Adagrad`` on the same rows as a sparse
+   COO gradient (eps 0: the same update up to rounding, fresh rows'
+   accumulators being at their initial value). P1's lines give the
+   rounds the kernel ran beside the plain version's; P2's the share of
+   its byte bound and of its arithmetic bound. The kernels' record
+   takes K1's, K2's, P1's and P2's times from here.
 9. (d) that trained state saved as a full checkpoint and restored with
    the port's ``CheckpointManager``: equal eval scores, and the
    checkpoint holds ``slot/['accum']`` rows and ``dense_opt`` leaves.
 10. (c) the same path with ``sparse_opt="adam"`` for a few steps, with
-   the same checks for K1, P1, P2 and K3.
+   the same checks for K1, P1, P2 and K3 (beside
+   ``torch.optim.SparseAdam``, its step size set to the step's alpha).
 11. (e) the sizes of ``__graft_entry__._build`` built with the port
    alone, three steps on the card and on the CPU from the same weights;
    the losses must agree.
@@ -91,9 +101,11 @@ non-zero:
    duplicates, one crowded bucket row, more ids pending than a round
    takes, the round cap, tombstones, lookup-only ids, sentinels), then
    on a 65-wide table of 2**19 slots fed batches of 294,912 unseen ids
-   until it is full, timed on the next batch (every id runs to the
-   round cap) and on a lookup of it; then an insert of unseen ids into
-   the full table captured in a CUDA graph (no host sync).
+   until it is full (or FULL_TABLE_BATCHES were fed), timed on the
+   next batch (almost no id finds a free slot: the plain version runs
+   to the round cap, the kernel stops at the first round whose ids are
+   all dead) and on a lookup of it; then an insert of unseen ids into
+   that table captured in a CUDA graph (no host sync).
 16. (j) the headline path for 3 + 3 steps with each optimizer beyond
    Adagrad and Adam (SGD, AdagradDecay, AdamAsync in both forms, Ftrl,
    FtrlV2): P1 launched by each, K3 by AdamAsync.
@@ -115,6 +127,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -141,6 +154,12 @@ CPU_LOGIT_ATOL = 2e-3
 PROB_ATOL = 1.5e-3
 SMALL = 256  # rows of the CPU reference check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak device-memory rate
+# Lane instructions an SM issues a cycle: 4 schedulers, a warp of 32 each.
+LANES_PER_SM_CYCLE = 4 * 32
+# Filled in phases 1-2: the SMs and maximum SM clock of the card, and
+# the SASS instructions an element of P2's draw takes, by initializer.
+CARD = {}
+DRAW_INSTRUCTIONS = {}
 # Kernel vs plain optimizer apply on the same inputs: the kernels are
 # built with --fmad=false and repeat the plain version's operations, so
 # the slot arrays (accumulator, moments) must be equal; the table rows
@@ -219,9 +238,98 @@ def phase_device() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     log(smi.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    CARD["clock_hz"] = float(clock.strip().splitlines()[0]) * 1e6
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.cuda.get_device_name(0)
+
+
+_KIND_OF = {0: "zeros", 1: "constant", 2: "uniform", 3: "normal",
+            4: "truncated_normal"}
+
+
+def shortest_path_instructions(sass: str) -> int:
+    """Instructions issued on the shortest path from the entry of a
+    function's SASS (``cuobjdump -sass`` lines of one function) to an
+    unpredicated EXIT: a conditional branch may go either way, a CALL
+    counts as one instruction, NOPs count nothing. Any run of the
+    function issues at least that many."""
+    import heapq
+    ins = []
+    for line in sass.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).split()))
+    at = {addr: i for i, (addr, _) in enumerate(ins)}
+    dist = [None] * len(ins)
+    heap = [(0, 0)]
+    while heap:
+        d, i = heapq.heappop(heap)
+        if i >= len(ins) or dist[i] is not None:
+            continue
+        dist[i] = d
+        toks = ins[i][1]
+        pred = toks[0].startswith("@")
+        op = toks[1] if pred else toks[0]
+        d += op != "NOP"
+        if op == "EXIT" and not pred:
+            return d
+        if op.startswith("RET") and not pred:
+            continue
+        nxt = []
+        if op.startswith("BRA"):
+            nxt.append(at[int(toks[-1], 16)])
+            if pred:
+                nxt.append(i + 1)
+        else:
+            nxt.append(i + 1)
+        for j in nxt:
+            heapq.heappush(heap, (d, j))
+    raise AssertionError("no path to an EXIT in the SASS")
+
+
+def draw_instructions() -> dict:
+    """SASS instructions an element of P2's draw takes at least, by
+    initializer: ``tools/init_rows_one_element.cu`` (one kernel an
+    initializer, a single element each) built with ``init_rows``' flags
+    into a cubin, each kernel's shortest path from its entry to its
+    EXIT (:func:`shortest_path_instructions`): the slow paths of
+    ``cosf`` (a large argument) and ``sqrtf`` (special values) sit
+    behind branches no element of the draw takes."""
+    from deeprec_tpu_torch.ops.kernels import build
+    out_dir = os.path.join(ROOT, "build", "sass")
+    os.makedirs(out_dir, exist_ok=True)
+    cubin = os.path.join(out_dir, "init_rows_one_element.cubin")
+    flags = [f for f in build.NVCC_FLAGS + build.KERNEL_FLAGS["init_rows"]
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([build._nvcc(), *flags, "-cubin", "-o", cubin,
+                    os.path.join(ROOT, "tools", "init_rows_one_element.cu")],
+                   check=True, capture_output=True, text=True, timeout=600)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+         cubin], check=True, capture_output=True, text=True,
+        timeout=120).stdout
+    counts = {}
+    for part in re.split(r"Function : ", sass)[1:]:
+        head = re.match(r"\S*draw_one\S*ILi(\d)E", part)
+        if head:
+            counts[_KIND_OF[int(head.group(1))]] = \
+                shortest_path_instructions(part)
+    if set(counts) != set(_KIND_OF.values()):
+        raise AssertionError(f"draw_instructions: SASS counts {counts}")
+    return counts
+
+
+def ops_bound_ms(instructions: float) -> float:
+    """Least time to issue ``instructions`` lane instructions on every
+    SM of the card at its maximum SM clock."""
+    rate = CARD["sms"] * LANES_PER_SM_CYCLE * CARD["clock_hz"]
+    return instructions / rate * 1e3
 
 
 def phase_build():
@@ -230,12 +338,17 @@ def phase_build():
     from deeprec_tpu_torch.ops.kernels import build
     names = build.KERNELS
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        sass = pool.submit(draw_instructions)
         for f in [pool.submit(build.load_library, n) for n in names]:
             f.result()
+        DRAW_INSTRUCTIONS.update(sass.result())
     log(f"phase 2 build: {', '.join(names)} ready in "
         f"{time.perf_counter() - t0:.3f} s (nvcc " + ", ".join(
-            f"{n} {build.build_seconds[n]:.3f} s" for n in names) + ")")
+            f"{n} {build.build_seconds[n]:.3f} s" for n in names) + "); "
+        f"P2's draw takes {DRAW_INSTRUCTIONS} SASS instructions an "
+        f"element; {CARD['sms']} SMs at most {CARD['clock_hz'] / 1e6:.0f} "
+        f"MHz")
 
 
 def bound_ms(nbytes: float) -> float:
@@ -451,7 +564,7 @@ def captured_probes():
 
 
 def _plain_rounds(fn):
-    """(result of ``fn()``, straggler rounds the plain probe ran)."""
+    """(result of ``fn()``, straggler rounds the plain ``find`` ran)."""
     from deeprec_tpu_torch.embedding import hash_table as ht
     rounds = [0]
     compact = ht._compact
@@ -471,7 +584,9 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
                   max_probes: int, time_it: bool = True) -> dict:
     """P1 (``kind`` "insert" or "find") on these operands against its
     plain version, each on its own copy of the key rows ``rows0``:
-    slots, ``is_new`` and key rows must be equal. With ``time_it``:
+    slots, ``is_new`` and key rows must be equal; an insert's kernel
+    must have run the plain version's rounds, or stopped at its first
+    round whose every id was dead. With ``time_it``:
     device times (an insert restores the key rows before each call, and
     that copy's time is taken off; the fast round apart, ``max_rounds``
     1), the plain version's event-fenced time (its host reads included)
@@ -498,17 +613,25 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
             raise AssertionError(f"P1 find {label}: slots differ from the "
                                  f"plain version")
         pending = real & ~found & ~saw_empty & (n_rows > 1)
-        per_id, new = 12, 0
+        per_id, new, k_rounds, stats = 12, 0, None, {}
+        rounds = f"plain {rounds} wide rounds"
     else:
         kt, pt = ht.HashTable(rows0.clone()), ht.HashTable(rows0.clone())
         _, ks, kn = ht.find_or_insert(kt, qhi, qlo, mask, max_probes)
-        (_, ps, pn), rounds = _plain_rounds(
-            lambda: ht.find_or_insert_reference(pt, qhi, qlo, mask,
-                                                max_probes))
+        k_rounds = int(hash_probe.last_rounds)
+        stats = {}
+        _, ps, pn = ht.find_or_insert_reference(pt, qhi, qlo, mask,
+                                                max_probes, stats=stats)
         if not (torch.equal(ks, ps) and torch.equal(kn, pn)
                 and torch.equal(kt.key_rows, pt.key_rows)):
             raise AssertionError(f"P1 insert {label}: slots, is_new or key "
                                  f"rows differ from the plain version")
+        if k_rounds != (stats["first_dead_round"] or stats["rounds"]):
+            raise AssertionError(f"P1 insert {label}: the kernel ran "
+                                 f"{k_rounds} rounds, the plain version "
+                                 f"{stats}")
+        rounds = (f"kernel {k_rounds} rounds, plain {stats['rounds']} "
+                  f"(first all-dead round {stats['first_dead_round']})")
         _, s1, _ = ht.find_or_insert_reference(
             ht.HashTable(rows0.clone()), qhi, qlo, mask, max_probes,
             max_rounds=1)
@@ -524,7 +647,9 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
     n_touched = int(torch.unique(torch.cat(touched)).numel())
     nbytes = n_touched * row * 4 + per_id * n + 8 * new
     rec = {"max_abs_err": 0.0, "library_ms": None, "n": n,
-           "pending_after_fast": int(pending.sum()), "rounds": rounds,
+           "pending_after_fast": int(pending.sum()), "rounds": k_rounds,
+           "plain_rounds": stats.get("rounds"),
+           "first_dead_round": stats.get("first_dead_round"),
            "rows_touched": n_touched, "bound_ms": bound_ms(nbytes),
            "missing": int((real & (got >= capacity)).sum()), "new": new}
     if not time_it:
@@ -555,7 +680,7 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
                  f"{rec['straggler_ms']:.4f})")
     log(f"phase {label}: P1 {kind} [{capacity} slots], n={n}, "
         f"{rec['pending_after_fast']} pending after the fast round, "
-        f"{rounds} straggler rounds, {new} inserted, {rec['missing']} "
+        f"{rounds}, {new} inserted, {rec['missing']} "
         f"real ids without a slot, {n_touched} key rows touched: kernel "
         f"{rec['ms']:.4f} ms{split}, plain {rec['plain_ms']:.4f} ms (host "
         f"reads included), "
@@ -599,8 +724,11 @@ def compare_init(label: str, values0, fresh, slots, qhi, qlo, initializer,
     its own copy of ``values0``: the largest difference over the whole
     table, within ``INIT_ATOL`` (times the scale) for the normal kinds,
     zero for the others. Device times of both (repeated calls write the
-    same rows) and the bound: the fresh flags, the slot and id of every
-    fresh entry and each distinct fresh row written once."""
+    same rows) and two bounds: bytes (the fresh flags, the slot and id
+    of every fresh entry and each distinct fresh row written once) and
+    operations (each element of a distinct fresh row drawn once, at
+    ``DRAW_INSTRUCTIONS`` instructions an element, over the SMs' issue
+    rate); the record's bound is the larger."""
     from deeprec_tpu_torch.ops.kernels import init_rows
     args = (fresh, slots, qhi, qlo, initializer, scale, salt)
     got, want = values0.clone(), values0.clone()
@@ -617,18 +745,24 @@ def compare_init(label: str, values0, fresh, slots, qhi, qlo, initializer,
     n, n_fresh = fresh.numel(), int(on.sum())
     rows = int(torch.unique(slots[on]).numel())
     nbytes = n + 12 * n_fresh + rows * D * values0.element_size()
+    byte_ms = bound_ms(nbytes)
+    op_ms = ops_bound_ms(DRAW_INSTRUCTIONS[initializer] * rows * D)
     rec = {"max_abs_err": err, "library_ms": None, "n": n,
            "fresh": n_fresh, "rows": rows,
            "ms": median_ms(lambda: init_rows.init_fresh(got, *args)),
            "plain_ms": median_ms(
                lambda: init_rows.init_fresh_reference(want, *args)),
-           "bound_ms": bound_ms(nbytes)}
+           "bytes_bound_ms": byte_ms, "ops_bound_ms": op_ms,
+           "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "operations" if op_ms > byte_ms else "bytes"}
     del got, want
     log(f"phase {label}: init_fresh [{C1}, {D}] {initializer}, n={n}, "
         f"{n_fresh} fresh entries, {rows} fresh rows: kernel "
-        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({_pct(rec)}); max abs difference from "
-        f"the plain version {err:.3g}")
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; byte bound "
+        f"{byte_ms:.4f} ms ({100 * byte_ms / rec['ms']:.1f} %), arithmetic "
+        f"bound {op_ms:.4f} ms ({100 * op_ms / rec['ms']:.1f} %; "
+        f"{DRAW_INSTRUCTIONS[initializer]} instructions an element); max "
+        f"abs difference from the plain version {err:.3g}")
     return rec
 
 
@@ -903,12 +1037,53 @@ def _apply_bytes(kind, C, D, slots, upd, is_new) -> int:
     return D * (old * n_old + new * n_fresh) + head * slots.numel()
 
 
+def library_apply(kind, values, tables, slots, grads, upd, args,
+                  kernel_values):
+    """``torch.optim``'s sparse step on an apply's operands, the library
+    yardstick of K2 (``torch.optim.Adagrad``, eps 0 and no lr decay:
+    ``w -= lr * g / sqrt(acc + g*g)``) or K3 (``torch.optim.SparseAdam``
+    with lr = alpha and a step count so large that both bias corrections
+    round to 1: ``w -= alpha * m / (sqrt(v) + eps)``, its moments updated
+    as ``m + (1 - beta1) * (g - m)``). The updated rows go in as a
+    coalesced sparse COO gradient; the slot state is copied in. Neither
+    resets a fresh row's slot state, so the update is K2's or K3's where
+    fresh rows hold the initial value, as on a step whose new keys take
+    slots never used before. Returns (its time between CUDA events, host
+    waits included: its sparse ops read the card; the largest difference
+    of its rows from ``kernel_values``, the kernel's rows after one
+    apply)."""
+    C = values.shape[0] - 1
+    applied, _ = _applied(C, slots, upd, None)
+    idx = slots[applied].long()
+    param = torch.nn.Parameter(values.clone())
+    param.grad = torch.sparse_coo_tensor(
+        idx[None], grads[applied], values.shape).coalesce()
+    if kind == "adagrad":
+        lr, init_acc = args
+        opt = torch.optim.Adagrad([param], lr=lr, eps=0.0,
+                                  initial_accumulator_value=init_acc)
+        opt.state[param]["sum"].copy_(tables[0])
+    else:
+        alpha, beta1, beta2, eps = args
+        opt = torch.optim.SparseAdam([param], lr=float(alpha),
+                                     betas=(beta1, beta2), eps=eps)
+        opt.state[param].update(step=10**6, exp_avg=tables[0].clone(),
+                                exp_avg_sq=tables[1].clone())
+    opt.step()
+    diff = (float((param.detach()[idx] - kernel_values[idx]).abs().max())
+            if idx.numel() else 0.0)
+    ms = event_ms(opt.step)
+    del opt, param
+    return ms, diff
+
+
 def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
-                  label: str, time_it: bool) -> dict:
+                  label: str, time_it: bool, library: bool = False) -> dict:
     """Kernel vs plain apply on copies of the same inputs: slot arrays
     equal, rows within APPLY_RTOL/APPLY_ATOL, row C untouched. With
     ``time_it``, median times of both over REPS calls (each applies
-    again, in place, on its own copy) and the bound."""
+    again, in place, on its own copy) and the bound; with ``library``,
+    the time of :func:`library_apply` too."""
     C = values.shape[0] - 1
     kv, pv = values.clone(), values.clone()
     kt = [t.clone() for t in tables]
@@ -926,6 +1101,9 @@ def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
     if not torch.equal(kv[C], values[C]):
         raise AssertionError(f"{kind} {label}: the kernel wrote row C")
     rec = {"max_abs_err": err}
+    if library:
+        rec["library_ms"], rec["library_diff"] = library_apply(
+            kind, values, tables, slots, grads, upd, args, kv)
     if time_it:
         D = values.shape[1]
         applied, fresh = _applied(C, slots, upd, is_new)
@@ -942,7 +1120,11 @@ def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
             f"{rec['ms']:.4f} ms "
             f"({nbytes / rec['ms'] / 1e6:.1f} GB/s), plain "
             f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({_pct(rec)}); max abs err {err}")
+            f"({_pct(rec)}); max abs err {err}" + (
+                f"; torch.optim.{'Adagrad' if kind == 'adagrad' else 'SparseAdam'}"
+                f" {rec['library_ms']:.4f} ms (event-fenced), max abs row "
+                f"difference from the kernel {rec['library_diff']:.3g}"
+                if library else ""))
     del kv, pv, kt, pt
     return rec
 
@@ -1084,7 +1266,7 @@ def _compare_step_kernels(tr, kind, label, batch):
     draws = [compare_init(f"{label} step's draw", *args) for args in inits]
     del calls, probes, inits
     recs = [compare_apply(kind, *ops, f"{label} same gradients",
-                          time_it=True)
+                          time_it=True, library=True)
             for ops in _step_applies(tr, kind, gl, grads)]
     del gl, grads
     with captured_probes() as probes:
@@ -1375,8 +1557,9 @@ def phase_probe(device="cuda", capacity: int = 1 << 19,
     """(i) P1 against its plain version on every case of
     ``tests/torch_probe_cases.py`` (the CPU tests' cases), then on a
     65-wide table of the headline's capacity (2**19 slots) fed batches
-    of 294,912 unseen ids until it is full, timed on the next batch
-    (every id then runs to the round cap) and on a lookup of it.
+    of 294,912 unseen ids until it is full (or FULL_TABLE_BATCHES were
+    fed), timed on the next batch (almost no id finds a free slot) and
+    on a lookup of it.
     Returns the full-table insert record."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_probe_cases as pc
@@ -1422,15 +1605,15 @@ def phase_probe(device="cuda", capacity: int = 1 << 19,
         ht.find_or_insert(table, hi, lo, mask)
         live = int(ht.live_mask(table).sum())
         log(f"phase 15 (i): 65-wide table batch {b}: {rec['new']} inserted, "
-            f"{rec['rounds']} straggler rounds, {live} of {capacity} slots "
-            f"live")
+            f"the kernel ran {rec['rounds']} rounds (the plain version "
+            f"{rec['plain_rounds']}), {live} of {capacity} slots live")
         if last:
             compare_probe("15 (i) 65-wide table", "find", table.key_rows,
                           hi, lo, None, 64)
             hi, lo = ids_of(rng.integers(1, 2**62, size=n))
             capture_without_sync(
                 "15 (i)", "find_or_insert of unseen ids into the full table "
-                "(every id to the round cap)",
+                "(the kernel stops at its first all-dead round)",
                 lambda: ht.find_or_insert(table, hi, lo, mask))
             return rec
         b += 1
@@ -1550,7 +1733,8 @@ def _record(name, source, replaces, launches, err, rec, path):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec.get("bound_by", "bytes"),
             "library_ms": rec.get("library_ms"), "path": path}
 
 
@@ -1559,11 +1743,14 @@ def _probe_record(path, launches, probes, kind="insert"):
     largest probe operands."""
     suffix = "" if path == "headline" else f"[{path}]"
     name = "hash_probe_" + ("find" if kind == "find" else "insert")
-    return _record(name + suffix, "deeprec_tpu_torch/csrc/hash_probe.cu",
-                   "deeprec_tpu/embedding/hash_table.py:" + (
-                       "256" if kind == "find" else "311"),
-                   launches[name], 0.0,
-                   max(probes, key=lambda r: r["bound_ms"]), path)
+    top = max(probes, key=lambda r: r["bound_ms"])
+    rec = _record(name + suffix, "deeprec_tpu_torch/csrc/hash_probe.cu",
+                  "deeprec_tpu/embedding/hash_table.py:" + (
+                      "256" if kind == "find" else "311"),
+                  launches[name], 0.0, top, path)
+    if kind != "find":
+        rec.update(rounds=top["rounds"], plain_rounds=top["plain_rounds"])
+    return rec
 
 
 def _path_records(path, launches, fetch, applies, gather_err, apply_err,
@@ -1657,7 +1844,9 @@ def main():
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "
         f"{full_table['plain_ms']:.4f} ms, bound {full_table['bound_ms']:.4f}"
-        f" ms, {full_table['rounds']} straggler rounds")
+        f" ms; the kernel ran {full_table['rounds']} rounds, the plain "
+        f"version {full_table['plain_rounds']} (first all-dead round "
+        f"{full_table['first_dead_round']})")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

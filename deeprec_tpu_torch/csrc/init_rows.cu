@@ -20,16 +20,28 @@
 // that share a slot must be occurrences of one id: they write the same
 // values.
 //
-// What bounds it: bytes. A call reads the fresh flags (one byte an
-// entry), the slots and ids of the fresh entries, and writes their rows.
-// On a cycled training step almost nothing is fresh, so the flags are
-// the whole cost; on a batch of unseen ids the row writes are.
+// What bounds it: the arithmetic, once rows are fresh. A call reads the
+// fresh flags (one byte an entry), the slots and ids of the fresh
+// entries, and writes their rows; but every element of a fresh row is a
+// chain of some 100+ instructions (two fmix32 hashes, to_unit, logf,
+// cosf, sqrtf and the clamp for the normal kinds), so the issue rate of
+// the SMs, not the bytes, is the least time of a draw of many rows. On
+// a cycled training step almost nothing is fresh, and the flags are the
+// whole cost.
 //
-// Design: a warp takes 32 consecutive entries, one a lane, and loads
-// their flags and (where fresh) slots; __ballot_sync gives the fresh
-// ones, and the warp walks their set bits, writing each fresh row with
-// its lanes across the columns (coalesced stores), so the cost of the
-// draw follows the fresh rows, not the entries.
+// Design: a block takes kThreads consecutive entries. Its warps ballot
+// over the fresh ones and a block-wide prefix of the warps' counts
+// packs their slots and hashed ids, in entry order, into shared memory.
+// The block's threads then walk the fresh rows' elements (rows x D) in
+// strides of kThreads, kIlp independent elements a thread at a time, so
+// every lane has work whatever the width and several draws are in
+// flight in each thread. Neighbouring threads take neighbouring
+// columns of a row: the stores coalesce. The element's row and column
+// advance by adding the stride, not by a division. Which thread draws
+// an element does not change its value: each element is a function of
+// its id and column alone, computed with the same separately rounded
+// operations as before; the kind is a template argument, so the loop
+// has no branch on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,7 +50,10 @@
 namespace {
 
 constexpr uint32_t kPhi = 0x9E3779B9u;
-constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 128;  // entries a block, and its threads
+constexpr int kWarps = kThreads / 32;
+constexpr int kIlp = 4;        // elements in flight in a thread
 
 enum Kind : int { kZeros = 0, kConstant = 1, kUniform = 2, kNormal = 3,
                   kTruncatedNormal = 4 };
@@ -60,18 +75,18 @@ __device__ __forceinline__ float to_unit(uint32_t bits) {
 // One element: a and b are the kind's float32 scalars (constant: a;
 // uniform: a = minval, b = maxval - minval; normal kinds: a = stddev),
 // mix1/mix2 the salted hash offsets of the (first, second) grid.
-__device__ __forceinline__ float draw(int kind, uint32_t base, uint32_t col,
-                                      float a, float b, uint32_t mix1,
-                                      uint32_t mix2) {
-  if (kind == kZeros) return 0.0f;
-  if (kind == kConstant) return a;
+template <int kKind>
+__device__ __forceinline__ float draw(uint32_t base, uint32_t col, float a,
+                                      float b, uint32_t mix1, uint32_t mix2) {
+  if (kKind == kZeros) return 0.0f;
+  if (kKind == kConstant) return a;
   const uint32_t c = col * kPhi;
   const float u1 = to_unit(fmix32(base ^ mix1 ^ c));
-  if (kind == kUniform) return __fadd_rn(a, __fmul_rn(b, u1));
+  if (kKind == kUniform) return __fadd_rn(a, __fmul_rn(b, u1));
   const float u2 = to_unit(fmix32(base ^ mix2 ^ c));
   const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
   const float z = __fmul_rn(r, cosf(__fmul_rn(6.28318548202514648f, u2)));
-  if (kind == kNormal) return __fmul_rn(a, z);
+  if (kKind == kNormal) return __fmul_rn(a, z);
   return __fmul_rn(a, fminf(fmaxf(z, -2.0f), 2.0f));
 }
 
@@ -84,36 +99,114 @@ __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+template <typename T, int kKind>
 __global__ void __launch_bounds__(kThreads)
-init_fresh_kernel(T* __restrict__ values, int64_t C, int64_t D,
+init_fresh_kernel(T* __restrict__ values, int64_t C, int32_t D,
                   const int32_t* __restrict__ slots,
                   const bool* __restrict__ fresh,
                   const int32_t* __restrict__ qhi,
-                  const int32_t* __restrict__ qlo, int64_t n, int kind,
-                  float a, float b, uint32_t mix1, uint32_t mix2) {
-  const int lane = threadIdx.x & 31;
-  const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) - lane;
-  const int64_t i = first + lane;
+                  const int32_t* __restrict__ qlo, int64_t n, float a,
+                  float b, uint32_t mix1, uint32_t mix2) {
+  __shared__ int32_t s_slot[kThreads];
+  __shared__ uint32_t s_base[kThreads];
+  __shared__ int s_count[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int32_t slot = -1;
   bool on = false;
   if (i < n && fresh[i]) {
     slot = slots[i];
     on = slot >= 0 && slot < C;
   }
-  unsigned mask = __ballot_sync(0xffffffffu, on);
-  while (mask) {
-    const int j = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int64_t s = __shfl_sync(0xffffffffu, slot, j);
-    const uint32_t hi = static_cast<uint32_t>(qhi[first + j]);
-    const uint32_t lo = static_cast<uint32_t>(qlo[first + j]);
-    const uint32_t base = lo ^ (hi * kPhi);
-    T* row = values + s * D;
-    for (int64_t c = lane; c < D; c += 32)
-      row[c] = cast<T>(draw(kind, base, static_cast<uint32_t>(c), a, b,
-                            mix1, mix2));
+  // The block's fresh entries, packed in entry order.
+  const unsigned bits = __ballot_sync(kFull, on);
+  if (lane == 0) s_count[warp] = __popc(bits);
+  __syncthreads();
+  int before = 0, rows = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int k = s_count[w];
+    before += w < warp ? k : 0;
+    rows += k;
+  }
+  if (rows == 0) return;  // the same for every thread of the block
+  if (on) {
+    const int at = before + __popc(bits & ((1u << lane) - 1u));
+    s_slot[at] = slot;
+    s_base[at] = static_cast<uint32_t>(qlo[i]) ^
+                 (static_cast<uint32_t>(qhi[i]) * kPhi);
+  }
+  __syncthreads();
+  // Element e = row * D + col of the packed rows; thread t takes
+  // e = t, t + kThreads, ...: kIlp of them at once while the block has
+  // kIlp * kThreads left, then one at a time.
+  const int dr = kThreads / D, dc = kThreads % D;
+  int row = threadIdx.x / D, col = threadIdx.x % D;
+  const int total = rows * D;
+  for (int e = 0; e + kIlp * kThreads <= total; e += kIlp * kThreads) {
+    int rr[kIlp], cc[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      rr[k] = row;
+      cc[k] = col;
+      row += dr;
+      col += dc;
+      if (col >= D) {
+        col -= D;
+        ++row;
+      }
+    }
+    float v[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k)
+      v[k] = draw<kKind>(s_base[rr[k]], static_cast<uint32_t>(cc[k]), a, b,
+                         mix1, mix2);
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k)
+      values[static_cast<int64_t>(s_slot[rr[k]]) * D + cc[k]] = cast<T>(v[k]);
+  }
+  for (; row < rows; row += dr) {
+    values[static_cast<int64_t>(s_slot[row]) * D + col] = cast<T>(
+        draw<kKind>(s_base[row], static_cast<uint32_t>(col), a, b, mix1,
+                    mix2));
+    col += dc;
+    if (col >= D) {
+      col -= D;
+      ++row;
+    }
+  }
+}
+
+template <typename T, int kKind>
+void launch(unsigned blocks, cudaStream_t s, T* values, int64_t C, int32_t D,
+            const int32_t* sl, const bool* fr, const int32_t* hi,
+            const int32_t* lo, int64_t n, float a, float b, uint32_t mix1,
+            uint32_t mix2) {
+  init_fresh_kernel<T, kKind><<<blocks, kThreads, 0, s>>>(
+      values, C, D, sl, fr, hi, lo, n, a, b, mix1, mix2);
+}
+
+template <typename T>
+void launch_kind(int kind, unsigned blocks, cudaStream_t s, T* values,
+                 int64_t C, int32_t D, const int32_t* sl, const bool* fr,
+                 const int32_t* hi, const int32_t* lo, int64_t n, float a,
+                 float b, uint32_t mix1, uint32_t mix2) {
+  switch (kind) {
+    case kZeros:
+      return launch<T, kZeros>(blocks, s, values, C, D, sl, fr, hi, lo, n, a,
+                               b, mix1, mix2);
+    case kConstant:
+      return launch<T, kConstant>(blocks, s, values, C, D, sl, fr, hi, lo, n,
+                                  a, b, mix1, mix2);
+    case kUniform:
+      return launch<T, kUniform>(blocks, s, values, C, D, sl, fr, hi, lo, n,
+                                 a, b, mix1, mix2);
+    case kNormal:
+      return launch<T, kNormal>(blocks, s, values, C, D, sl, fr, hi, lo, n, a,
+                                b, mix1, mix2);
+    default:
+      return launch<T, kTruncatedNormal>(blocks, s, values, C, D, sl, fr, hi,
+                                         lo, n, a, b, mix1, mix2);
   }
 }
 
@@ -128,7 +221,9 @@ extern "C" int deeprec_init_fresh(void* values, int64_t C, int64_t D,
                                   uint32_t mix1, uint32_t mix2, int64_t esize,
                                   void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (C < 0 || D < 1 || kind < kZeros || kind > kTruncatedNormal)
+  // A block's elements (at most kThreads rows of D) index an int.
+  if (C < 0 || D < 1 || D > (1 << 20) || kind < kZeros ||
+      kind > kTruncatedNormal)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL)
@@ -139,15 +234,14 @@ extern "C" int deeprec_init_fresh(void* values, int64_t C, int64_t D,
   auto hi = static_cast<const int32_t*>(qhi);
   auto lo = static_cast<const int32_t*>(qlo);
   const int k = static_cast<int>(kind);
-  const dim3 grid(static_cast<unsigned>(blocks));
+  const auto g = static_cast<unsigned>(blocks);
+  const auto d = static_cast<int32_t>(D);
   if (esize == 4) {
-    init_fresh_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<float*>(values), C, D, sl, fr, hi, lo, n, k, a, b, mix1,
-        mix2);
+    launch_kind(k, g, s, static_cast<float*>(values), C, d, sl, fr, hi, lo, n,
+                a, b, mix1, mix2);
   } else if (esize == 2) {
-    init_fresh_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(values), C, D, sl, fr, hi, lo, n, k, a, b,
-        mix1, mix2);
+    launch_kind(k, g, s, static_cast<__nv_bfloat16*>(values), C, d, sl, fr,
+                hi, lo, n, a, b, mix1, mix2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

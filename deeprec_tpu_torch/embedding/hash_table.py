@@ -246,12 +246,17 @@ def find_or_insert(table: HashTable, qhi, qlo, insert_mask,
 
 
 def find_or_insert_reference(table: HashTable, qhi, qlo, insert_mask,
-                             max_probes: int = 64, max_rounds: int = 128):
+                             max_probes: int = 64, max_rounds: int = 128,
+                             stats: Optional[dict] = None):
     """Plain version of :func:`find_or_insert`, on any device: the fast
     round, then straggler rounds over the first ``_straggler_budget(n)``
     pending ids in ascending order while any is pending and fewer than
     ``max_rounds`` rounds ran (a host read a round, and more inside
-    it)."""
+    it). A given ``stats`` dict gets ``rounds``, the rounds run (the
+    fast round counts 1), and ``first_dead_round``, the number of the
+    first straggler round whose every id was dead (an insert whose wide
+    window holds neither its key nor a reusable slot), or None: the
+    kernel stops there, as every later round changes nothing."""
     n = qhi.shape[0]
     capacity = table.capacity
     key_rows = table.key_rows
@@ -285,6 +290,7 @@ def find_or_insert_reference(table: HashTable, qhi, qlo, insert_mask,
 
     M = _straggler_budget(n)
     r = 1
+    first_dead = None
     while r < max_rounds and bool(pending.any()):
         # Full-width round over a compacted pending subset.
         idx = _compact(pending, n, M)
@@ -312,6 +318,12 @@ def find_or_insert_reference(table: HashTable, qhi, qlo, insert_mask,
         done = hit | won | (real & ~found & ~want_insert[safe])
         pending[idx[done]] = False
         r += 1
+        if stats is not None and first_dead is None:
+            dead = ~found & ~has_reuse & want_insert[safe]
+            if bool((dead | ~real).all()):
+                first_dead = r
+    if stats is not None:
+        stats.update(rounds=r, first_dead_round=first_dead)
     return table, slots, is_new
 
 

@@ -17,6 +17,12 @@ launches of each wrapper.
 (:func:`claim_buffer`), free (``INT32_MAX``) everywhere, and leaves it
 so: the table that owns it passes it to every insert, ordered on one
 stream, as the training step's are.
+
+``last_rounds`` is a one-element int32 tensor on the card that the last
+``find_or_insert`` launch fills with the rounds it ran (the fast round
+counts 1; a call stops at a round whose every id is dead, see the
+kernel's header). Reading it waits for the card: only tools read it,
+nothing on a step's path does.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from deeprec_tpu_torch.ops.kernels import build
 
 launches = {"find": 0, "find_or_insert": 0}
+last_rounds = None
 _lock = threading.Lock()
 _fns: dict = {}
 
@@ -38,6 +45,7 @@ _ARGTYPES = {
     "deeprec_probe_find": [_P, _I64, _I64, _P, _P, _I64, _I64, _P, _P],
     "deeprec_probe_insert": [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _I64,
                              _I64, _P, _P, _P, _P, _P],
+    "deeprec_probe_grid_max": [],
 }
 _FREE = 2**31 - 1
 
@@ -78,6 +86,17 @@ def _check_ids(fn, key_rows, qhi, qlo):
     if n >= 2**31:
         raise ValueError(f"{fn}: {n} ids do not fit int32")
     return n_rows, W, n
+
+
+def _scratch_size(n: int, budget: int) -> int:
+    """Int32 of an insert's scratch for ``n`` ids and a straggler budget
+    of ``budget``: the fast round's proposals and pending flags, the
+    pending list, a round's window (ids, codes, proposals), the pending
+    count, the rounds run and two counts for each block the straggler
+    grid may have (the kernel's ``deeprec_probe_grid_max``)."""
+    if "grid_max" not in _fns:
+        _fns["grid_max"] = _kernel("deeprec_probe_grid_max")()
+    return 3 * n + 3 * budget + 2 + 2 * _fns["grid_max"]
 
 
 def claim_buffer(capacity: int, device) -> torch.Tensor:
@@ -123,7 +142,9 @@ def find_or_insert(key_rows: torch.Tensor, qhi: torch.Tensor,
     """``(slots [n] int32, is_new [n] bool)``; inserts the absent ids
     with ``insert_mask`` into ``key_rows`` in place. ``claim``: the
     table's claim buffer; ``budget``: ids a straggler round takes;
-    ``max_rounds``: rounds at most, the fast round included."""
+    ``max_rounds``: rounds at most, the fast round included. The rounds
+    run go to :data:`last_rounds`."""
+    global last_rounds
     n_rows, W, n = _check_ids("hash_probe.find_or_insert", key_rows, qhi,
                               qlo)
     dev = key_rows.device
@@ -149,7 +170,7 @@ def find_or_insert(key_rows: torch.Tensor, qhi: torch.Tensor,
     if not 1 <= budget <= n:
         raise ValueError(f"hash_probe.find_or_insert: budget {budget} not "
                          f"in [1, {n}]")
-    scratch = torch.empty((3 * n + 3 * budget + 1,), dtype=torch.int32,
+    scratch = torch.empty((_scratch_size(n, budget),), dtype=torch.int32,
                           device=dev)
     fn = _kernel("deeprec_probe_insert")
     with torch.cuda.device(dev):
@@ -161,5 +182,7 @@ def find_or_insert(key_rows: torch.Tensor, qhi: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"hash_probe.find_or_insert: kernel launch "
                            f"failed, cudaError {rc}")
+    at = 3 * n + 3 * budget + 1
+    last_rounds = scratch[at:at + 1]
     _count("find_or_insert")
     return slots, is_new

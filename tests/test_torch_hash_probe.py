@@ -10,12 +10,17 @@ bit for bit. Then ``find`` and ``lookup_train_occ`` run under
 ``cuda`` and skip without a card; they import no JAX:
 ``python -m pytest --noconftest tests/test_torch_hash_probe.py -m cuda``.
 Here, on the CPU: the wrappers refuse CPU tensors, and the table's CPU
-path runs the plain version without touching the kernel.
+path runs the plain version without touching the kernel; the plain
+version equals the JAX package on the dead-id cases, and rounds after
+the first round whose every id is dead change nothing (the rule that
+lets the kernel stop there), on random tables with tombstones.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import event, given, settings
+from hypothesis import strategies as st
 
 import torch_probe_cases as pc
 from deeprec_tpu_torch.embedding import hash_table as ht
@@ -40,7 +45,9 @@ def _ids(ids, dev):
 
 def _run_kernel_and_plain(capacity, ops, dev):
     """Each operation through the kernel on one table and through the
-    plain version on another, both on ``dev``; asserts equal results."""
+    plain version on another, both on ``dev``; asserts equal results,
+    and that the kernel ran no more rounds than the plain version (it
+    stops at the first round whose every id is dead)."""
     kt = ht.create(capacity, dev)
     pt = ht.create(capacity, dev)
     for op in ops:
@@ -58,10 +65,14 @@ def _run_kernel_and_plain(capacity, ops, dev):
             continue
         mask = torch.from_numpy(op[2]).to(dev)
         _, s_k, n_k = ht.find_or_insert(kt, hi, lo, mask)
-        _, s_p, n_p = ht.find_or_insert_reference(pt, hi, lo, mask)
+        stats = {}
+        _, s_p, n_p = ht.find_or_insert_reference(pt, hi, lo, mask,
+                                                  stats=stats)
         assert torch.equal(s_k, s_p)
         assert torch.equal(n_k, n_p)
         assert torch.equal(kt.key_rows, pt.key_rows)
+        want = stats["first_dead_round"] or stats["rounds"]
+        assert int(hash_probe.last_rounds) == want
 
 
 @pytest.mark.cuda
@@ -153,3 +164,132 @@ def test_probe_kernel_is_registered():
     assert "hash_probe" in build.KERNELS
     for name in build.KERNELS:
         assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
+
+
+def _plain_run(key_rows, ids, mask, max_rounds=128, stats=None):
+    """The plain insert of ``ids`` into a copy of ``key_rows`` (CPU)."""
+    table = ht.HashTable(key_rows.clone())
+    hi, lo = _ids(ids, "cpu")
+    _, slots, is_new = ht.find_or_insert_reference(
+        table, hi, lo, torch.from_numpy(mask), max_rounds=max_rounds,
+        stats=stats)
+    return table.key_rows, slots, is_new
+
+
+def _table_before(name):
+    """Key rows of case ``name`` before its last insert, and that
+    insert's ids and mask."""
+    capacity, ops = CASES[name]
+    table = ht.create(capacity, "cpu")
+    last = max(i for i, op in enumerate(ops) if op[0] == "insert")
+    for op in ops[:last]:
+        if op[0] == "remove":
+            table.key_rows.copy_(torch.from_numpy(
+                pc.tombstone(table.key_rows.numpy(), op[1])))
+        elif op[0] == "insert":
+            hi, lo = _ids(op[1], "cpu")
+            ht.find_or_insert_reference(table, hi, lo,
+                                        torch.from_numpy(op[2]))
+    return table.key_rows, ops[last][1], ops[last][2]
+
+
+@pytest.mark.parametrize("name,first_dead", [("dead_ahead_of_live", 2),
+                                             ("dead_interleaved", 8)])
+def test_dead_id_cases_match_jax(name, first_dead):
+    """The dead-id cases: the plain version equals the JAX package's
+    ``find_or_insert`` (slots, is_new, key rows) at the 128-round cap;
+    the first round whose every id is dead is the one the case is built
+    for. Ahead of live: ids left without a slot include live ones whose
+    window holds a tombstone, which a probe that dropped dead ids from
+    the pending list would have placed. Interleaved: the live ids took
+    every tombstone before the window went all dead."""
+    jax = pytest.importorskip("jax")
+    from deeprec_tpu.embedding import hash_table as jht
+
+    rows, ids, mask = _table_before(name)
+    stats = {}
+    got_rows, slots, is_new = _plain_run(rows, ids, mask, stats=stats)
+    hi, lo = keylib.split_ids(np.asarray(ids, np.int64))
+    jtab, jslots, jnew = jax.jit(jht.find_or_insert)(
+        jht.HashTable(key_rows=jax.numpy.asarray(rows.numpy())),
+        jax.numpy.asarray(hi), jax.numpy.asarray(lo),
+        jax.numpy.asarray(mask))
+    np.testing.assert_array_equal(got_rows.numpy(), np.asarray(jtab.key_rows))
+    np.testing.assert_array_equal(slots.numpy(), np.asarray(jslots))
+    np.testing.assert_array_equal(is_new.numpy(), np.asarray(jnew))
+    assert stats == {"rounds": 128, "first_dead_round": first_dead}
+    # Live ids left at the cap: not found, with a reusable slot in their
+    # wide window.
+    capacity = CASES[name][0]
+    thi, tlo = _ids(ids, "cpu")
+    found, _, has_reuse, _, _ = ht._scan_wide(
+        got_rows, thi, tlo, ht._start_slots(thi, tlo, capacity), 64)
+    live_left = (slots == capacity) & torch.from_numpy(mask) & has_reuse
+    assert not bool(found[slots == capacity].any())
+    tombs = sum(op[1].size for op in CASES[name][1] if op[0] == "remove")
+    if name == "dead_ahead_of_live":
+        assert int(live_left.sum()) == 300 and not bool(is_new.any())
+    else:
+        assert int(is_new.sum()) == tombs and not bool(live_left.any())
+
+
+def _random_table(rng, capacity, load, tomb_share):
+    """Key rows of a ``capacity``-slot table: about ``load`` of each
+    bucket row holds distinct ids that start in that row or the one
+    before it, ``tomb_share`` of those slots are tombstones. Returns
+    (key rows, ids present, ids never used)."""
+    W = min(64, capacity)
+    n_rows = capacity // W
+    pool = np.unique(rng.integers(1, 2**50, size=40 * capacity))
+    pool = pool[rng.permutation(pool.size)]
+    starts = pc.start_rows(pool, capacity)
+    used = np.zeros(pool.size, bool)
+    kp = np.zeros((capacity, 2), np.int64)
+    kp[:, 0], kp[:, 1] = pc.EMPTY >> 32, 0
+    present = []
+    for q in range(n_rows):
+        k = int(round(load * W))
+        at = rng.choice(W, size=k, replace=False)
+        src = np.flatnonzero(~used & ((starts == q)
+                                      | (starts == (q - 1) % n_rows)))[:k]
+        used[src] = True
+        hi, lo = keylib.split_ids(pool[src])
+        kp[q * W + at[:src.size], 0] = hi
+        kp[q * W + at[:src.size], 1] = lo
+        present.append(pool[src])
+    rows = kp.astype(np.int32).reshape(n_rows, 2 * W)
+    live = np.flatnonzero(kp[:, 0] != (pc.EMPTY >> 32))
+    rows = pc.tombstone(rows, live[rng.random(live.size) < tomb_share])
+    return torch.from_numpy(rows), np.concatenate(present), pool[~used]
+
+
+@settings(max_examples=12, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2**32 - 1),
+       capacity=st.sampled_from([256, 512, 1024]),
+       load=st.floats(0.8, 1.0), tomb_share=st.floats(0.0, 0.15),
+       n=st.integers(1025, 3000), insert_share=st.floats(0.7, 1.0))
+def test_rounds_after_an_all_dead_round_change_nothing(
+        seed, capacity, load, tomb_share, n, insert_share):
+    """Property (b) of the kernel's header, on the plain version: on a
+    random table with tombstones and a batch of 1,025-3,000 ids (new
+    ones, present ones, duplicates, lookup-only ones), stopping at the
+    first round whose every id is dead, or just before it, gives what
+    the 128-round cap gives."""
+    rng = np.random.default_rng(seed)
+    rows, present, fresh = _random_table(rng, capacity, load, tomb_share)
+    k_present = int(n * rng.uniform(0.0, 0.2))
+    ids = np.concatenate([rng.choice(present, k_present),
+                          fresh[:n - k_present]])
+    dup = rng.random(n) < 0.1
+    ids[dup] = ids[rng.integers(0, n, int(dup.sum()))]
+    mask = rng.random(n) < insert_share
+    stats = {}
+    want = _plain_run(rows, ids, mask, stats=stats)
+    first = stats["first_dead_round"]
+    event(f"first all-dead round {'none' if first is None else 'found'}")
+    if first is None:
+        return
+    for max_rounds in (first - 1, first):
+        got = _plain_run(rows, ids, mask, max_rounds=max_rounds)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -12,7 +12,9 @@ The cases cover what decides the probe's outcome: duplicates, padding
 and the other sentinel ids, lookup-only ids, collisions in one bucket
 row (claims lost round after round), more ids pending after the fast
 round than a straggler round takes, tombstones, a table filled until
-ids run into the round cap, and a one-row table. Numpy only.
+ids run into the round cap, a one-row table, and dead ids (inserts
+whose window has no free slot) ahead of and among live ones. Numpy
+only.
 """
 
 from __future__ import annotations
@@ -125,6 +127,55 @@ def cases() -> dict:
                           np.full(10, EMPTY)])
     ids = ids[r.permutation(ids.size)].astype(np.int64)
     out["sentinels"] = (256, [_ins(ids), ("find", ids)])
+
+    # Dead ids (an insert whose two-row window holds neither its key nor
+    # a free slot) never get a slot in a call, keep their place among
+    # the pending ids and count toward the 1,024 a straggler round
+    # takes. A 2,048-slot table is filled exactly (64 ids a row, each
+    # placed in its own bucket row), then a few slots become tombstones.
+    fill = np.stack([_same_row(r, 2048, row, 64) for row in range(32)])
+    tombs = {5: [3, 40, 41], 20: [10, 63]}
+    more = {5: [0, 7, 8], 12: [5, 6, 50], 20: [1, 2, 30, 31]}
+
+    def filled(tombs):
+        ops = [_ins(fill[:, :32].ravel()), _ins(fill[:, 32:].ravel())]
+        return ops + [("remove", np.asarray(
+            [row * 64 + c for row, cs in tombs.items() for c in cs]))]
+
+    def new_ids(rows, k):
+        """``k`` ids new to the table whose probe starts at ``rows``."""
+        cand = r.integers(2**41, 2**42, size=1 << 17)
+        return cand[np.isin(start_rows(cand, 2048), rows)][:k]
+
+    def dead_rows(tombs):  # windows {row, row + 1} without a tombstone
+        return [q for q in range(32)
+                if q not in tombs and (q + 1) % 32 not in tombs]
+
+    def live_rows(tombs):
+        return [q for q in range(32) if q in tombs or (q + 1) % 32 in tombs]
+
+    # More dead ids than a round takes ahead of live ones: every round's
+    # window is all dead, so the live ids behind it (their windows hold
+    # tombstones, so they could claim) keep slot = capacity.
+    ids = np.concatenate([new_ids(dead_rows(tombs), 1100),
+                          new_ids(live_rows(tombs), 300)])
+    out["dead_ahead_of_live"] = (2048, filled(tombs) + [
+        _ins(ids), ("find", ids)])
+
+    # Dead ids spread among live inserts, lookup-only ids and present
+    # ids: live ids take the 10 tombstones one round after another
+    # while the dead ones sit in every window, until every id of the
+    # window is dead.
+    both = {**tombs, **{k: tombs.get(k, []) + v for k, v in more.items()}}
+    dead = new_ids(dead_rows(both), 1400)
+    live = new_ids(live_rows(both), 500)
+    look = new_ids(list(range(32)), 100)
+    ids = np.concatenate([dead, live, look, fill[::3, ::9].ravel()])
+    order = r.permutation(ids.size)
+    mask = np.ones(ids.size, bool)
+    mask[dead.size + live.size:dead.size + live.size + look.size] = False
+    out["dead_interleaved"] = (2048, filled(both) + [
+        _ins(ids[order], mask[order]), ("find", ids[order])])
     return out
 
 
