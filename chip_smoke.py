@@ -117,6 +117,28 @@ non-zero:
    within ``FUSED_LOSS_RTOL``; then the step time of each, in turns on
    the same batches.
 
+19. (m) the WDL ``--ev`` run (``ev_cbf``): ``tools/train_zoo_torch.py
+   wdl --bf16 --ev --cbf --filter_freq 2 --steps_to_live 3`` at B =
+   16,384 and full width (three coalesced tables, 128 x 2,097,152, 64 x
+   524,288 and 1 x 4,194,304, each with 2**20 CBF counters), 8 steps
+   with saves (incremental every 2, full at 6 after a shrink), eval, then
+   a second run resumed from its end-of-run save to 10 steps, through
+   ``main`` in this process: K1, K2, P1 (insert and find) and P2 launch
+   counts reset just before and read just after; finite losses and an
+   AUC strictly between 0 and 1. Then the same model through the
+   Estimator and a CheckpointManager: the CBF step timed (ms, samples/s),
+   a shrink and a full save at step 6, steps to 8, a shrink and an
+   incremental save carrying tombstones (shrink ms, keys evicted, save
+   seconds); a fresh restore (full-6, incr-8 with its tombstones
+   replayed) equal to the live state key by key (rows, freqs, versions,
+   counters); a ServingModel at full-6 whose ``delta_update`` drops a
+   key evicted at 8 (P1 compared on the replay's probes); K1, K2, P1 and
+   P2 on the next step's operands (tables with tombstones) and P1's find
+   on the eval lookups, against their plain versions; the CBF step's
+   lookups under ``set_sync_debug_mode("error")`` and captured in a CUDA
+   graph; ``dedup``'s device time against ``lookup_train_occ``'s claim
+   dedup on the same ids.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -191,6 +213,16 @@ SMALL_LOSS_ATOL = 1e-6
 # Row widths of the kernels' edge cases: below, at and one above
 # multiples of the 32 lanes of a warp.
 EDGE_WIDTHS = (1, 4, 17, 64, 65, 128, 129, 256, 257)
+# Phase 19 (m): the WDL --ev run of tools/train_zoo_torch.py at full
+# width (three tables, 128 x 2,097,152, 64 x 524,288 and 1 x 4,194,304,
+# CBF counters and eviction on every column; the save at step 6 evicts
+# keys untouched since step 2), and the in-process run's warm-up and
+# timed steps.
+EV_CBF_ARGS = ["wdl", "--batch_size", str(BATCH), "--bf16", "--ev", "--cbf",
+               "--filter_freq", "2", "--steps_to_live", "3", "--save_steps",
+               "6", "--incremental_ckpt", "2", "--eval_steps", "4",
+               "--log_steps", "4"]
+EV_CBF_STEPS = (2, 4)
 
 
 def log(msg: str):
@@ -237,7 +269,8 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    log(smi.strip().splitlines()[0])
+    CARD["smi"] = smi.strip().splitlines()[0]
+    log(CARD["smi"])
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -535,11 +568,13 @@ def event_ms(fn, reps: int = 5) -> float:
 
 
 @contextlib.contextmanager
-def captured_probes():
+def captured_probes(clone_finds: bool = False):
     """Record the operands of every probe the lookups make (``variable``
     calls them through the module), still running P1: ("insert", the
     key rows as they were before the call, qhi, qlo, insert mask,
-    max_probes) or ("find", key rows, qhi, qlo, None, max_probes)."""
+    max_probes) or ("find", key rows, qhi, qlo, None, max_probes); a
+    find's key rows are a copy with ``clone_finds`` (for callers that
+    change the table after the find, as ``delete_keys`` does)."""
     from deeprec_tpu_torch.embedding import hash_table as ht
     calls = []
     insert_fn, find_fn = ht.find_or_insert, ht.find
@@ -552,8 +587,9 @@ def captured_probes():
                          max_rounds)
 
     def find(table, qhi, qlo, max_probes=64):
-        calls.append(("find", table.key_rows, qhi.clone(), qlo.clone(),
-                      None, max_probes))
+        rows = table.key_rows.clone() if clone_finds else table.key_rows
+        calls.append(("find", rows, qhi.clone(), qlo.clone(), None,
+                      max_probes))
         return find_fn(table, qhi, qlo, max_probes)
 
     ht.find_or_insert, ht.find = insert, find
@@ -848,7 +884,7 @@ def phase_state(ckpt_dir: str):
             "keys": keys, "values": rows.cpu().numpy(),
             "freqs": np.ones(keys.size, np.int32),
             "versions": np.zeros(keys.size, np.int32)}, chunk=1 << 16)
-        live = ev.num_live(st)
+        live = int(ev.num_live(st))
         if live != keys.size:
             raise AssertionError(f"{tname}: {live} live keys after "
                                  f"inserting {keys.size}")
@@ -1541,7 +1577,7 @@ def phase_e2e(tmp: str):
         f"B={BATCH}: {out['value']:.1f} samples/s ({out['step_ms']:.3f} "
         f"ms/step); losses {[round(x, 6) for x in out['losses']]}; "
         f"n_overflow per step {out['n_overflow']}; live keys per table "
-        f"{[ev.num_live(st) for st in tr.ts.ev.values()]}; launches "
+        f"{[int(ev.num_live(st)) for st in tr.ts.ev.values()]}; launches "
         f"{launches}")
     batches = bench.e2e_batches(tr, path)
     batch = batch_to(next(batches), tr.device)
@@ -1729,6 +1765,234 @@ def phase_fused_and_repeat():
     _release()
 
 
+def _train_zoo():
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_zoo_torch
+    return train_zoo_torch
+
+
+def _live_rows(group, states) -> dict:
+    """Per table, the live keys' (keys, values, freqs, versions) sorted
+    by key, and the CBF counters, on the host."""
+    from deeprec_tpu_torch.embedding import variable as ev
+    out = {}
+    for tname, cfg in group.tables.items():
+        a = ev.export_arrays(cfg, states[tname])
+        order = np.argsort(a["keys"])
+        out[tname] = {k: (v[order] if k != "bloom" else v)
+                      for k, v in a.items()}
+    return out
+
+
+def _n_live(states) -> int:
+    from deeprec_tpu_torch.embedding import variable as ev
+    return sum(int(ev.num_live(st)) for st in states.values())
+
+
+def phase_ev_cbf(tmp: str, device="cuda"):
+    """(m) the WDL --ev training run: tools/train_zoo_torch.py at full
+    width (8 steps, then a resumed run to 10), launch counts reset just
+    before and read just after; then the same model in process through
+    the Estimator and a CheckpointManager: the CBF step timed, its
+    lookups without a host sync, a full save at step 6 after a shrink,
+    steps to 8, a shrink and an incremental save with tombstones; a fresh
+    restore equal to the live state, a ServingModel delta that drops an
+    evicted key, and every kernel of the path against its plain version
+    on the path's operands."""
+    import types
+
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.embedding import lookup as lkup
+    from deeprec_tpu_torch.embedding import variable as ev
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    from deeprec_tpu_torch.optimizers import sparse as sopt
+    from deeprec_tpu_torch.serving.processor import ServingModel
+    from deeprec_tpu_torch.train import loop as trainlib
+    from deeprec_tpu_torch.utils import keys as keylib
+
+    tz = _train_zoo()
+    label = "19 (m)"
+    dev = torch.device(device)
+    argv = EV_CBF_ARGS + ["--checkpoint", os.path.join(tmp, "tool")] + (
+        ["--cpu"] if dev.type == "cpu" else [])
+    gather.launches = 0                       # the main path starts here
+    sa.launches["adagrad_apply_rows"] = 0
+    hash_probe.launches["find_or_insert"] = 0
+    hash_probe.launches["find"] = 0
+    init_rows.launches = 0
+    t0 = time.perf_counter()
+    runs = [tz.main(argv + ["--steps", "8"])]
+    _release()
+    runs.append(tz.main(argv + ["--steps", "10"]))
+    launches = {"gather_rows": gather.launches,
+                "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
+                "hash_probe_insert": hash_probe.launches["find_or_insert"],
+                "hash_probe_find": hash_probe.launches["find"],
+                "init_fresh_rows": init_rows.launches}  # the main path ends
+    tool_s = time.perf_counter() - t0
+    _release()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the ev_cbf path did not launch every kernel: "
+                             f"{launches}")
+    for r in runs:
+        if not (np.isfinite(r["final_loss"]) and 0 < r["auc"] < 1):
+            raise AssertionError(f"ev_cbf run: {r}")
+    if runs[1].get("resumed_from") != 8 or runs[1]["steps"] != 10:
+        raise AssertionError(f"the second run did not resume at 8: {runs[1]}")
+    log(f"phase {label}: tools/train_zoo_torch.py {' '.join(EV_CBF_ARGS)}: "
+        f"8 steps (loss {runs[0]['final_loss']}, auc {runs[0]['auc']}), "
+        f"then resumed from {runs[1]['resumed_from']} to 10 (loss "
+        f"{runs[1]['final_loss']}, auc {runs[1]['auc']}) in {tool_s:.3f} s "
+        f"with saves, restore and eval; launches {launches}")
+
+    # The same model in process.
+    args = tz.parse_args(EV_CBF_ARGS + ["--checkpoint",
+                                        os.path.join(tmp, "est")])
+    est, make_data, pack, _ = tz.build(args, dev)
+    group, mgr = est.group, est.manager
+    data = make_data(args.seed)
+    batches = [pack(data) for _ in range(9)]
+    warm, timed = EV_CBF_STEPS
+    est.train(iter(batches), warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(iter(batches[warm:]), warm + timed)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed
+
+    def shrink(step):
+        before = _n_live(est.ts.ev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        est.ts = mgr.shrink_tables(est.ts, step)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, before - _n_live(est.ts.ev)
+
+    def timed_save(**kw):
+        t = time.perf_counter()
+        path = mgr.save(est.ts, **kw)
+        return time.perf_counter() - t, path
+
+    shrink6_s, evicted6 = shrink(6)
+    save6_s, full6 = timed_save()
+    est.train(iter(batches[6:8]), 8)
+    shrink8_s, evicted8 = shrink(8)
+    save8_s, incr8 = timed_save(incremental=True, since_step=6)
+    if not (evicted6 > 0 and evicted8 > 0):
+        raise AssertionError(f"the shrinks evicted {evicted6} and {evicted8} "
+                             f"keys")
+    tombs = {}
+    for fn in os.listdir(incr8):
+        if fn.startswith("table-"):
+            with np.load(os.path.join(incr8, fn)) as z:
+                tombs[fn[len("table-"):-len("-s0.npz")]] = z["tombstones"]
+    if not any(t.size for t in tombs.values()):
+        raise AssertionError("the incremental save carries no tombstones")
+    live = _live_rows(group, est.ts.ev)
+
+    # A fresh restore: full-6, then incr-8 with its tombstones replayed.
+    est2, _, _, _ = tz.build(args, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got_step = est2.restore_if_available()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    back = _live_rows(group, est2.ts.ev)
+    for tname, want in live.items():
+        for k, v in want.items():
+            if not np.array_equal(back[tname][k], v):
+                raise AssertionError(f"restore {tname}: {k} differs from the "
+                                     f"live state at step 8")
+    if got_step != 8:
+        raise AssertionError(f"restored step {got_step}, not 8")
+    serve_tmpl = trainlib.create_train_state(
+        group, {k: v.clone() for k, v in est2.ts.params.items()}, device=dev)
+    apply_fn = est2.apply_fn
+    del est2
+    _release()
+
+    # Serving: full-6, then the delta with its tombstones.
+    serving = ServingModel(group, apply_fn, serve_tmpl, mgr.dir)
+    serving.full_update(step=6)
+    tname = max(group.tables, key=lambda t: group.tables[t].dim)
+    cfg = group.tables[tname]
+    with np.load(os.path.join(full6, f"table-{tname}-s0.npz")) as z:
+        gone = np.intersect1d(tombs[tname], z["keys"])[:1]
+    if gone.size != 1:
+        raise AssertionError("no key of full-6 among the tombstones")
+    hi, lo = keylib.split_ids(gone)
+    qhi, qlo = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    before = ev.lookup(cfg, serving._ts.ev[tname], qhi, qlo)
+    with captured_probes(clone_finds=True) as replay:
+        t = time.perf_counter()
+        version = serving.delta_update()
+        torch.cuda.synchronize()
+        delta_s = time.perf_counter() - t
+    after = ev.lookup(cfg, serving._ts.ev[tname], qhi, qlo)
+    if (version != 8 or not bool((before != 0).any())
+            or not torch.equal(after, serving._ts.ev[tname].default_bank[:1])):
+        raise AssertionError(f"serving delta: version {version}; the evicted "
+                             f"key read {before} before and {after} after")
+    finds = [c for c in replay if c[0] == "find"]
+    compare_probes(f"{label} delta replay", replay, time_it=False)
+    del serving, serve_tmpl
+    _release()
+
+    # The kernels on the path's operands: the step after the shrink at 8
+    # (tables with tombstones), then the eval lookups' finds.
+    tr = types.SimpleNamespace(
+        ts=est.ts, group=group, apply_fn=est.apply_fn, loss_fn=est.loss_fn,
+        sparse_opt=sopt.SparseAdagrad(learning_rate=args.learning_rate))
+    fetch, applies, probes, draws = _compare_step_kernels(
+        tr, "adagrad", label, batches[8])
+    eval_batch = pack(make_data(args.seed + 10_001))
+    with captured_probes() as evals:
+        est.predict(eval_batch)
+    find_recs = compare_probes(f"{label} eval", evals)
+
+    # No host sync in the CBF step's lookups.
+    raw = data.next_batch_np(wide=True)
+    ub = group.pack_batch_np(
+        {k: v + (1 << 56) if k.startswith("C") else v
+         for k, v in raw.items()}, dev)
+    lookups_without_sync(label, group, est.ts.ev, ub, step=est.ts.step)
+    capture_without_sync(label, "the CBF step's lookups (dedup, counters, "
+                         "P1, P2, K1) on an unseen batch",
+                         lambda: group.lookup_train(est.ts.ev, ub,
+                                                    est.ts.step))
+
+    # dedup against lookup_train_occ's claim dedup, on the widest
+    # table's ids of one batch.
+    tcols = group._columns_by_table()[tname]
+    fhi, flo, _ = group._packed_view(batches[8], tname, tcols)
+    fhi, flo = fhi.reshape(-1).contiguous(), flo.reshape(-1).contiguous()
+    slots = ht.find(est.ts.ev[tname].table, fhi, flo)
+    real = fhi != keylib.EMPTY_HI
+    dedup_ms = median_ms(lambda: lkup.dedup(fhi, flo))
+    claim_ms = median_ms(lambda: ev.claim_dedup(slots, real, cfg.capacity))
+    sizes = {t: sum(os.path.getsize(os.path.join(p, f))
+                    for f in os.listdir(p)) for t, p in (("full-6", full6),
+                                                        ("incr-8", incr8))}
+    log(f"phase {label}: {CARD['smi']}: CBF step {step_s * 1e3:.3f} ms "
+        f"({BATCH / step_s:.1f} samples/s) over {timed} steps after "
+        f"{warm}; dedup of the {cfg.dim}-wide table's {fhi.numel()} ids "
+        f"{dedup_ms:.4f} ms device time, lookup_train_occ's claim dedup on "
+        f"the same ids {claim_ms:.4f} ms; shrink at 6: {evicted6} keys "
+        f"evicted in {shrink6_s * 1e3:.3f} ms, at 8: {evicted8} in "
+        f"{shrink8_s * 1e3:.3f} ms (journal included); full save "
+        f"{save6_s:.3f} s ({sizes['full-6']} bytes), incremental "
+        f"{save8_s:.3f} s ({sizes['incr-8']} bytes, "
+        f"{sum(t.size for t in tombs.values())} tombstones); fresh restore "
+        f"(full-6 + incr-8) {restore_s:.3f} s, equal to the live state at "
+        f"step 8 (keys, rows, freqs, versions, counters); serving delta "
+        f"{delta_s:.3f} s ({len(finds)} P1 finds in the replay), the evicted "
+        f"key reads the default row")
+    del est, tr, batches
+    _release()
+    return launches, fetch, applies, probes, draws, find_recs
+
+
 def _record(name, source, replaces, launches, err, rec, path):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1827,6 +2091,8 @@ def main():
     _release()
     phase_optimizers()
     phase_fused_and_repeat()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ev_") as d:
+        v_launches, v1, v2, vp, vi, vf = phase_ev_cbf(d)
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -1839,7 +2105,10 @@ def main():
         + _path_records("dim16", d_launches, d1, d2, gather_err, apply_err,
                         probes=dp, draws=di)
         + _path_records("e2e", e_launches, e1, e2, gather_err, apply_err,
-                        probes=ep, draws=ei))
+                        probes=ep, draws=ei)
+        + _path_records("ev_cbf", v_launches, v1, v2, gather_err, apply_err,
+                        probes=vp, draws=vi)
+        + [_probe_record("ev_cbf", v_launches, vf, kind="find")])
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

@@ -2,8 +2,9 @@
 
 Port of ``deeprec_tpu/config.py``: the same frozen dataclasses, with
 ``TableConfig.dtype`` a ``torch.dtype``. Only the options the ported
-serving and training paths honour are carried; eviction, adaptive and
-dynamic-dimension hot tables are not ported yet.
+serving and training paths honour are carried; adaptive and
+dynamic-dimension hot tables are not ported yet. CBF counters are
+int32 (the JAX package's ``counter_dtype`` default).
 """
 
 from __future__ import annotations
@@ -35,13 +36,31 @@ class CounterFilter:
 
 @dataclasses.dataclass(frozen=True)
 class CBFFilter:
-    """Counting-Bloom-filter admission. Declared so configurations can
-    name it; tables using it raise ``NotImplementedError`` at creation
-    because CBF admission is not ported yet."""
+    """Counting-Bloom-filter admission: ids are counted in a side table
+    of ``num_counters`` int32 counters (``num_hash_func`` positions an
+    id) and inserted into the main table only once their approximate
+    count reaches ``filter_freq`` (``embedding.variable.lookup_train``)."""
 
     filter_freq: int = 0
     num_hash_func: int = 3
     num_counters: int = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalStepEvict:
+    """Evict keys untouched for more than ``steps_to_live`` global
+    steps; applied by ``variable.shrink``, typically at checkpoint
+    time."""
+
+    steps_to_live: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class L2WeightEvict:
+    """Evict keys whose row's L2 norm is below ``l2_weight_threshold``;
+    applied by ``variable.shrink``."""
+
+    l2_weight_threshold: float = -1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +70,12 @@ class EmbeddingVariableOption:
     ``default_value_dim``: number of default rows; an unseen key reads
     row ``key % default_value_dim``. ``record_freq`` /
     ``record_version``: whether per-step metadata is tracked (see
-    ``embedding.variable._tracking``).
+    ``embedding.variable._tracking``; an ``evict_option`` forces
+    version tracking).
     """
 
     filter_option: Optional[CounterFilter | CBFFilter] = None
+    evict_option: Optional[GlobalStepEvict | L2WeightEvict] = None
     storage_type: StorageType = StorageType.HBM
     default_value_dim: int = 1
     record_freq: bool = True
@@ -114,3 +135,13 @@ class TableConfig:
                 raise ValueError(
                     f"table {self.name}: need {self.block_num - 1} "
                     "dyn_dim_thresholds")
+
+
+def steps_to_live_of(cfg: TableConfig) -> int:
+    ev = cfg.ev_option.evict_option
+    return ev.steps_to_live if isinstance(ev, GlobalStepEvict) else 0
+
+
+def filter_freq_of(cfg: TableConfig) -> int:
+    f = cfg.ev_option.filter_option
+    return f.filter_freq if f is not None else 0

@@ -7,9 +7,13 @@ as ``w``) keeps its name and layout. Table state: every ``EVState``
 field is copied as it is, so the port probes the same slots and reads
 the same rows.
 Optimizer state: the sparse optimizers' slot trees are the same dicts
-of arrays on both sides, and optax's Adagrad state
+of arrays on both sides, optax's Adagrad state
 ``(ScaleByRssState(sum_of_squares=tree), EmptyState())`` maps to the
-port's ``{"sum_of_squares": state dict}``. Everything crosses as numpy.
+port's ``{"sum_of_squares": state dict}`` and its Adam state
+``(ScaleByAdamState(count, mu, nu), EmptyState())`` to ``{"count",
+"mu", "nu"}``. A table's ``bloom`` (a CBF table's full counter array)
+crosses as it is, like every other field. Everything crosses as
+numpy.
 """
 
 from __future__ import annotations
@@ -96,15 +100,26 @@ def slots_to_numpy(slots) -> Dict[str, Dict[str, np.ndarray]]:
             for t, sl in slots.items()}
 
 
-def dense_opt_from_numpy(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
-    """optax Adagrad state with numpy leaves (``jax.tree.map(np.asarray,
-    ts.dense_opt)``) -> the port's ``Adagrad`` state."""
-    return {"sum_of_squares": wdl_params_from_numpy(
-        opt_state[0].sum_of_squares)}
+def dense_opt_from_numpy(opt_state) -> Dict[str, Any]:
+    """optax Adagrad or Adam state with numpy leaves
+    (``jax.tree.map(np.asarray, ts.dense_opt)``) -> the port's
+    ``Adagrad`` or ``Adam`` state."""
+    st = opt_state[0]
+    if hasattr(st, "sum_of_squares"):
+        return {"sum_of_squares": wdl_params_from_numpy(st.sum_of_squares)}
+    return {"count": torch.from_numpy(np.array(st.count, np.int32)),
+            "mu": wdl_params_from_numpy(st.mu),
+            "nu": wdl_params_from_numpy(st.nu)}
 
 
 def dense_opt_to_numpy(dense_opt) -> Dict[str, Any]:
     """The port's ``Adagrad`` state -> the flax-layout tree of optax's
-    ``sum_of_squares``; the JAX side wraps it as
-    ``(optax.ScaleByRssState(sum_of_squares=tree), optax.EmptyState())``."""
-    return wdl_params_to_numpy(dense_opt["sum_of_squares"])
+    ``sum_of_squares``, which the JAX side wraps as
+    ``(optax.ScaleByRssState(sum_of_squares=tree), optax.EmptyState())``;
+    its ``Adam`` state -> ``{"count", "mu", "nu"}`` (trees for the
+    moments), for ``(optax.ScaleByAdamState(**d), optax.EmptyState())``."""
+    if "sum_of_squares" in dense_opt:
+        return wdl_params_to_numpy(dense_opt["sum_of_squares"])
+    return {"count": dense_opt["count"].cpu().numpy(),
+            "mu": wdl_params_to_numpy(dense_opt["mu"]),
+            "nu": wdl_params_to_numpy(dense_opt["nu"])}

@@ -327,8 +327,27 @@ def find_or_insert_reference(table: HashTable, qhi, qlo, insert_mask,
     return table, slots, is_new
 
 
+def remove_slots(table: HashTable, slot_mask) -> HashTable:
+    """Tombstone, in place, every occupied slot where ``slot_mask``
+    ([capacity] bool) is set; an EMPTY or tombstoned slot stays as it
+    is. Tombstones keep probe chains intact and are reused by later
+    inserts. Returns ``table``."""
+    kp = table.key_pair
+    kill = slot_mask.to(torch.bool) & live_mask(table)
+    tomb = torch.tensor([keylib.TOMB_HI, keylib.TOMB_LO], dtype=torch.int32,
+                        device=kp.device)
+    kp.copy_(torch.where(kill[:, None], tomb[None, :], kp))
+    return table
+
+
 def live_mask(table: HashTable):
     """[capacity] bool: slots holding a real key."""
     sent = table.key_hi == keylib.EMPTY_HI
     return ~(sent & ((table.key_lo == keylib.EMPTY_LO)
                      | (table.key_lo == keylib.TOMB_LO)))
+
+
+def num_live(table: HashTable) -> torch.Tensor:
+    """Live keys, a 0-dim int32 tensor on the table's device (no host
+    read)."""
+    return live_mask(table).sum(dtype=torch.int32)

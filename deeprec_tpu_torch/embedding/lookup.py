@@ -1,10 +1,12 @@
-"""Bag combining of looked-up rows, and the training lookup of one table.
+"""Id dedup, bag combining of looked-up rows, and the training lookup
+of one table.
 
-Port of ``combine_bags``, ``combine_from_occ``, ``BagLookup`` and
-``bag_lookup_train`` from ``deeprec_tpu/embedding/lookup.py``
-(combiners sum / mean / sqrtn over padded-dense ``[B, L]`` bags). The
-sorted ``dedup`` path, which only CBF-filtered tables take, is not
-ported: those tables raise at creation.
+Port of ``dedup``, ``combine_bags``, ``combine_from_occ``,
+``BagLookup`` and ``bag_lookup_train`` from
+``deeprec_tpu/embedding/lookup.py`` (combiners sum / mean / sqrtn over
+padded-dense ``[B, L]`` bags). CBF-filtered tables take the sorted path
+(``dedup``, then ``variable.lookup_train``), every other EV table the
+sort-free ``variable.lookup_train_occ``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,47 @@ import torch
 from deeprec_tpu_torch import config as cfglib
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.utils import keys as keylib
+
+
+class DedupResult(NamedTuple):
+    uhi: torch.Tensor      # [n] unique id hi (EMPTY-padded)
+    ulo: torch.Tensor      # [n] unique id lo
+    counts: torch.Tensor   # [n] int32 occurrences (0 for padding)
+    inverse: torch.Tensor  # [n] int64 index into the unique arrays
+
+
+def dedup(hi, lo) -> DedupResult:
+    """Deduplicate an id batch on its device, with output size equal to
+    the input size: the ``jnp.unique(..., axis=0, size=n,
+    fill_value=EMPTY)`` of the JAX package. Unique ids come in the
+    signed lexicographic order of their (hi, lo) pairs (so the EMPTY
+    id, hi = int32 min, comes first where the batch holds padding),
+    followed by EMPTY fill rows; ``counts`` is 0 for ids whose hi is
+    the sentinel's. One sort of an int64 key ``(hi << 32) + (lo +
+    2**31)``, which orders as the pairs do, then run flags, a cumsum and
+    scatters into the fixed-size outputs: no ``torch.unique``, whose
+    size is data-dependent, and no host read."""
+    n = hi.shape[0]
+    dev = hi.device
+    key = (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + 2**31)
+    skey, order = torch.sort(key, stable=True)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = skey[1:] != skey[:-1]
+    run = torch.cumsum(first.to(torch.int64), 0) - 1
+    inverse = torch.empty(n, dtype=torch.int64, device=dev)
+    inverse[order] = run
+    at = torch.where(first, run, n)
+    uhi = torch.full((n + 1,), keylib.EMPTY_HI, dtype=torch.int32,
+                     device=dev)
+    ulo = torch.full((n + 1,), keylib.EMPTY_LO, dtype=torch.int32,
+                     device=dev)
+    uhi[at] = hi[order]
+    ulo[at] = lo[order]
+    uhi, ulo = uhi[:n], ulo[:n]
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    counts.index_add_(0, run, torch.ones(n, dtype=torch.int32, device=dev))
+    counts = torch.where(uhi != keylib.EMPTY_HI, counts, 0)
+    return DedupResult(uhi, ulo, counts, inverse)
 
 
 def _reduce(s, w, combiner: str):
@@ -63,8 +106,9 @@ def bag_lookup_train(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
                      unique_budget=None) -> tuple[ev.EVState, BagLookup]:
     """Training lookup for one padded-dense sparse feature [B, L]
     through :func:`variable.lookup_train_occ` (a static table:
-    :func:`variable.lookup_train_static`); ``state`` is updated in
-    place."""
+    :func:`variable.lookup_train_static`; a CBF table: :func:`dedup`
+    then :func:`variable.lookup_train`, with no unique budget); ``state``
+    is updated in place."""
     B, L = ids_hi.shape
     mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
     if cfg.static_buckets:
@@ -74,8 +118,16 @@ def bag_lookup_train(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
         return state, BagLookup(lk=occ.lk, inverse=occ.inverse.reshape(B, L),
                                 mask=mask, n_overflow=occ.n_overflow)
     if isinstance(cfg.ev_option.filter_option, cfglib.CBFFilter):
-        raise NotImplementedError(
-            f"table {cfg.name}: the sorted CBF training lookup is not ported")
+        # Admission needs each unique id's count before the insert. The
+        # JAX package's default ``n_overflow`` is a constant built at
+        # import; here a zero on the state's device.
+        dd = dedup(ids_hi.reshape(-1), ids_lo.reshape(-1))
+        state, lk = ev.lookup_train(cfg, state, dd.uhi, dd.ulo, dd.counts,
+                                    global_step, salt=salt)
+        return state, BagLookup(
+            lk=lk, inverse=dd.inverse.reshape(B, L), mask=mask,
+            n_overflow=torch.zeros((), dtype=torch.int32,
+                                   device=state.values.device))
     state, occ = ev.lookup_train_occ(
         cfg, state, ids_hi.reshape(-1), ids_lo.reshape(-1), global_step,
         salt=salt, budget=unique_budget)

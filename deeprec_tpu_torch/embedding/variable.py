@@ -4,17 +4,19 @@ Port of ``deeprec_tpu/embedding/variable.py``: table state, the
 read-only ``lookup`` (hash find, then the row fetch with default select
 in one ``gather_rows`` kernel), the sort-free training lookup
 ``lookup_train_occ`` (insert, first-occurrence dedup, budget compaction,
-row init, metadata, admission and the same fused fetch), and the
+row init, metadata, admission and the same fused fetch), the training
+lookup of deduplicated ids ``lookup_train`` (the CBF-filtered tables'
+path: counting-Bloom admission, insert of the admitted ids, row init,
+metadata, fetch), eviction (``shrink``, ``delete_keys``) and the
 4-tensor checkpoint export/import; and the static hash-bucket table
 (``create``'s full matrix, ``lookup_train_static``, ``lookup_static``,
-row-indexed export/import). Eviction (``shrink``, ``delete_keys``) and
-the sorted CBF path (``lookup_train``) are not ported yet.
+row-indexed export/import).
 
 Row arrays have ``capacity + 1`` rows; row ``capacity`` is the overflow
 sentinel, stays zero and is never written. The JAX package returns new
-arrays; here the training lookup and ``import_arrays`` write the
-state's tensors in place: a reference-shape table is gigabytes, and a
-copy per step or per import chunk would not fit.
+arrays; here the training lookups, eviction and ``import_arrays`` write
+the state's tensors in place: a reference-shape table is gigabytes, and
+a copy per step or per import chunk would not fit.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class EVState:
     freqs: torch.Tensor         # [C+1] int32 occurrence counts
     versions: torch.Tensor      # [C+1] int32 last-touched step (-1 unset)
     default_bank: torch.Tensor  # [default_value_dim, dim]
-    bloom: torch.Tensor         # [1] int32 (CBF admission is not ported)
+    bloom: torch.Tensor         # [num_counters] int32 CBF ([1] if unused)
 
 
 class LookupResult(NamedTuple):
@@ -68,9 +70,6 @@ class OccLookup(NamedTuple):
 
 def _check_ported(cfg: cfglib.TableConfig):
     ev = cfg.ev_option
-    if isinstance(ev.filter_option, cfglib.CBFFilter):
-        raise NotImplementedError(
-            f"table {cfg.name}: CBF admission (CBFFilter) is not ported")
     if ev.storage_type != cfglib.StorageType.HBM:
         raise NotImplementedError(
             f"table {cfg.name}: multi-tier storage "
@@ -125,6 +124,8 @@ def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
         bank = torch.zeros((dvd, dim), dtype=torch.float32, device=device)
     if cfg.static_buckets:
         return _create_static(cfg, device, salt, bank)
+    f = cfg.ev_option.filter_option
+    n_counters = f.num_counters if isinstance(f, cfglib.CBFFilter) else 1
     return EVState(
         table=ht.create(capacity, device),
         values=torch.zeros((capacity + 1, dim), dtype=cfg.dtype,
@@ -133,14 +134,23 @@ def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
         versions=torch.full((capacity + 1,), -1, dtype=torch.int32,
                             device=device),
         default_bank=bank.to(cfg.dtype),
-        bloom=torch.zeros((1,), dtype=torch.int32, device=device),
+        bloom=torch.zeros((n_counters,), dtype=torch.int32, device=device),
     )
+
+
+def _bloom_positions(f: cfglib.CBFFilter, qhi, qlo) -> torch.Tensor:
+    """[k, n] int64 counter positions of each id: ``hash_mix`` with
+    salt ``1000 + j`` modulo ``num_counters``, in uint32 arithmetic (the
+    hash's int64 lanes hold uint32 values)."""
+    return torch.stack([keylib.hash_mix(qhi, qlo, salt=1000 + j)
+                        % f.num_counters for j in range(f.num_hash_func)])
 
 
 def _tracking(cfg: cfglib.TableConfig) -> tuple[bool, bool]:
     """(track_freq, track_version): whether per-step metadata updates
     run. ``record_freq/record_version=False`` elide them unless a
-    subsystem needs them (counter filter and dyn-dim need freqs)."""
+    subsystem needs them (counter filter and dyn-dim need freqs,
+    eviction needs versions)."""
     ev = cfg.ev_option
     f = ev.filter_option
     tiered = ev.storage_type != cfglib.StorageType.HBM
@@ -149,7 +159,8 @@ def _tracking(cfg: cfglib.TableConfig) -> tuple[bool, bool]:
                       and f.filter_freq > 0)
                   or cfg.block_num > 1
                   or tiered)
-    track_version = ev.record_version or tiered
+    track_version = (ev.record_version or ev.evict_option is not None
+                     or tiered)
     return track_freq, track_version
 
 
@@ -173,6 +184,67 @@ def _default_sel(state: EVState, qhi, qlo):
     bank row itself, in the same pass as the table rows."""
     dvd = state.default_bank.shape[0]
     return None if dvd == 1 else keylib.mod_of(qhi, qlo, dvd)
+
+
+def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
+                 global_step: int, salt: int = 0
+                 ) -> tuple[EVState, LookupResult]:
+    """Training lookup of deduplicated ids ``[n]`` (padding: the EMPTY
+    id) with their occurrence ``counts`` in the step, as
+    ``lookup.dedup`` gives them: the CBF-filtered tables' path.
+
+    A CBF table reads each id's counters before this batch's adds (the
+    minimum over its ``num_hash_func`` positions), adds the id's count at
+    each position (duplicate positions accumulate) and admits the id
+    when that minimum plus its own count reaches ``filter_freq``; only
+    admitted ids are inserted (P1). Other tables insert every real id.
+    Inserted rows get their draw (P2), a zero freq, and
+    ``prev_versions`` the step; then every placed row's freq grows by
+    its count and its version becomes the step. The fetch is K1 with
+    the default select; a counter filter gates ``admitted`` by freq.
+
+    ``state`` is updated in place and returned. Sync-free: no host
+    read."""
+    capacity = cfg.capacity
+    counts = counts.to(torch.int32)
+    is_real = qhi != keylib.EMPTY_HI
+    f = cfg.ev_option.filter_option
+    if isinstance(f, cfglib.CBFFilter):
+        pos = _bloom_positions(f, qhi, qlo)
+        add = torch.where(is_real, counts, 0)
+        pre = state.bloom[pos].amin(dim=0)
+        for j in range(f.num_hash_func):
+            state.bloom.index_add_(0, pos[j], add)
+        insert_mask = is_real & (pre + add >= f.filter_freq)
+    else:
+        insert_mask = is_real
+
+    _, slots, is_new = ht.find_or_insert(
+        state.table, qhi, qlo, insert_mask, max_probes=cfg.max_probes)
+    init_kernel.init_fresh(state.values, is_new, slots, qhi, qlo,
+                           cfg.initializer, cfg.init_scale, salt)
+    safe = torch.clamp(slots, max=capacity).to(torch.int64)
+    prev_versions = torch.where(is_new, global_step,
+                                state.versions[safe]).to(torch.int32)
+    new_idx, _ = _drop_idx(slots, capacity, is_new)
+    state.freqs.index_put_((new_idx,), torch.where(
+        is_new, 0, state.freqs[capacity]).to(torch.int32))
+    widx, ok = _drop_idx(slots, capacity)
+    state.freqs.index_add_(0, widx, torch.where(ok, counts, 0))
+    state.versions.index_put_((widx,), torch.where(
+        ok, global_step, state.versions[capacity]).to(torch.int32))
+
+    admitted = slots < capacity
+    if isinstance(f, cfglib.CounterFilter) and f.filter_freq > 0:
+        admitted = admitted & (state.freqs[safe] >= f.filter_freq)
+    rows = gather.gather_rows(state.values, slots, admitted,
+                              state.default_bank,
+                              _default_sel(state, qhi, qlo))
+    if cfg.block_num > 1:
+        rows = _dyn_dim_mask(cfg, rows, state.freqs[safe])
+    return state, LookupResult(slots=slots, rows=rows, admitted=admitted,
+                               is_new=is_new, prev_versions=prev_versions,
+                               qhi=qhi, qlo=qlo)
 
 
 def _compact(rep, rep_token, is_real, tokens, U: int):
@@ -205,6 +277,27 @@ def _compact(rep, rep_token, is_real, tokens, U: int):
     return pick, inverse, n_overflow
 
 
+def claim_dedup(slots, is_real, capacity: int):
+    """The sort-free dedup of :func:`lookup_train_occ`: the first
+    occurrence of each slot (a scatter-min of the batch index over
+    ``capacity + 1`` entries) is its representative; ids the table could
+    not place (slot ``capacity``) are each their own. Returns
+    ``(tokens, in_tab, rep_token, rep)``: ``arange(n)`` int32, the
+    placed mask, each id's representative and the representative
+    mask (real ids only)."""
+    n, dev = slots.shape[0], slots.device
+    tokens = torch.arange(n, dtype=torch.int32, device=dev)
+    in_tab = slots < capacity
+    slot_d = torch.clamp(slots, max=capacity).to(torch.int64)
+    placed = is_real & in_tab
+    first = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, torch.where(placed, slot_d, capacity),
+                          torch.where(placed, tokens, n), "amin",
+                          include_self=True)
+    rep_token = torch.where(in_tab, first[slot_d], tokens)
+    return tokens, in_tab, rep_token, is_real & (rep_token == tokens)
+
+
 def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
                      global_step: int, salt: int = 0,
                      budget: Optional[int] = None
@@ -233,18 +326,7 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         state.table, qhi, qlo, is_real, max_probes=cfg.max_probes)
     n_table_overflow = (is_real & (slots >= capacity)).sum(dtype=torch.int32)
 
-    # Representatives: the first occurrence of each slot. Overflow ids
-    # (slot == capacity) are each their own representative.
-    tokens = torch.arange(n, dtype=torch.int32, device=dev)
-    in_tab = slots < capacity
-    slot_d = torch.clamp(slots, max=capacity).to(torch.int64)
-    placed = is_real & in_tab
-    first = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
-    first.scatter_reduce_(0, torch.where(placed, slot_d, capacity),
-                          torch.where(placed, tokens, n), "amin",
-                          include_self=True)
-    rep_token = torch.where(in_tab, first[slot_d], tokens)
-    rep = is_real & (rep_token == tokens)
+    tokens, in_tab, rep_token, rep = claim_dedup(slots, is_real, capacity)
 
     if budget is None:
         # U = n: every occurrence doubles as a unique row; the non-
@@ -421,16 +503,92 @@ def lookup(cfg: cfglib.TableConfig, state: EVState, qhi, qlo) -> torch.Tensor:
     return rows
 
 
-def num_live(state: EVState) -> int:
-    return int(ht.live_mask(state.table).sum())
+def num_live(state: EVState) -> torch.Tensor:
+    """Live keys of the table, a 0-dim int32 tensor on its device."""
+    return ht.num_live(state.table)
+
+
+# Rows of the table whose sum of squares ``shrink`` takes at a time, so
+# an L2 pass over a gigabyte table holds no [C, D] temporary.
+_SHRINK_ROWS = 1 << 16
+
+
+def _forget(state: EVState, mask) -> EVState:
+    """Tombstone the slots of ``mask`` ([capacity] bool) and clear
+    their metadata (freq 0, version -1), in place: a later reuse of the
+    slot starts clean."""
+    ht.remove_slots(state.table, mask)
+    state.freqs[:-1].masked_fill_(mask, 0)
+    state.versions[:-1].masked_fill_(mask, -1)
+    return state
+
+
+def shrink(cfg: cfglib.TableConfig, state: EVState,
+           global_step: int) -> EVState:
+    """Apply the table's eviction policy, in place (checkpoint-time
+    shrink): ``GlobalStepEvict`` drops live keys with a version ``v >=
+    0`` and ``global_step - v > steps_to_live``; ``L2WeightEvict`` those
+    whose row's float32 sum of squares is below the threshold squared,
+    taken ``_SHRINK_ROWS`` rows at a time. Evicted slots become
+    tombstones with freq 0 and version -1. Returns ``state``."""
+    ev_opt = cfg.ev_option.evict_option
+    if ev_opt is None:
+        return state
+    live = ht.live_mask(state.table)
+    body = state.versions[:-1]
+    if isinstance(ev_opt, cfglib.GlobalStepEvict):
+        if ev_opt.steps_to_live <= 0:
+            return state
+        evict = live & (body >= 0) & (
+            (global_step - body) > ev_opt.steps_to_live)
+    elif isinstance(ev_opt, cfglib.L2WeightEvict):
+        thr = torch.tensor(ev_opt.l2_weight_threshold ** 2,
+                           dtype=torch.float32)
+        evict = torch.empty_like(live)
+        for start in range(0, cfg.capacity, _SHRINK_ROWS):
+            end = min(start + _SHRINK_ROWS, cfg.capacity)
+            v = state.values[start:end].to(torch.float32)
+            evict[start:end] = (v * v).sum(dim=1) < thr.to(v.device)
+        evict &= live
+    else:
+        return state
+    return _forget(state, evict)
+
+
+def delete_keys(cfg: cfglib.TableConfig, state: EVState,
+                ids: np.ndarray) -> EVState:
+    """Remove the given int64 ids from the table, in place: their slots
+    become tombstones with freq 0 and version -1; absent ids are
+    ignored. Host-driven (the incremental checkpoint's tombstone
+    replay): the ids go through ``find`` in chunks of 8,192, padded with
+    the EMPTY id, as in the JAX package. Returns ``state``."""
+    ids = np.unique(np.asarray(ids, np.int64))
+    ids = ids[~np.isin(ids, (keylib.EMPTY_ID, keylib.TOMB_ID))]
+    if ids.size == 0:
+        return state
+    capacity = cfg.capacity
+    dev = state.values.device
+    mask = torch.zeros((capacity + 1,), dtype=torch.bool, device=dev)
+    chunk = 8192
+    for start in range(0, ids.size, chunk):
+        b = ids[start:start + chunk]
+        b = np.concatenate(
+            [b, np.full(chunk - b.size, keylib.EMPTY_ID, np.int64)])
+        hi, lo = keylib.split_ids(b)
+        slots = ht.find(state.table, torch.from_numpy(hi).to(dev),
+                        torch.from_numpy(lo).to(dev),
+                        max_probes=cfg.max_probes)
+        mask[torch.clamp(slots, max=capacity).to(torch.int64)] = True
+    return _forget(state, mask[:capacity])
 
 
 # -- checkpoint export / import: the 4-tensor EV format ---------------------
 
 def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarray]:
     """Host snapshot of live rows: keys/values/freqs/versions, in slot
-    order. A static table exports every row, keyed by its row index
-    (its id space is its row space)."""
+    order, and a CBF table's counters as ``bloom``. A static table
+    exports every row, keyed by its row index (its id space is its row
+    space)."""
     if cfg.static_buckets:
         N = cfg.capacity
         return {"keys": np.arange(N, dtype=np.int64),
@@ -439,12 +597,15 @@ def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarr
                 "versions": np.zeros((N,), np.int32)}
     idx = torch.nonzero(ht.live_mask(state.table)).reshape(-1)
     pair = state.table.key_pair[idx].cpu().numpy()
-    return {
+    out = {
         "keys": keylib.join_ids(pair[:, 0], pair[:, 1]),
         "values": state.values[idx].cpu().numpy(),
         "freqs": state.freqs[idx].cpu().numpy(),
         "versions": state.versions[idx].cpu().numpy(),
     }
+    if isinstance(cfg.ev_option.filter_option, cfglib.CBFFilter):
+        out["bloom"] = state.bloom.cpu().numpy()
+    return out
 
 
 def import_arrays(cfg: cfglib.TableConfig, state: EVState,
@@ -459,8 +620,9 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
     ``arrays["slot/<name>"]``. Returns ``state``, or ``(state,
     extra_targets)`` when they are given.
 
-    A static table takes the keys as row indices and assigns those
-    rows (one partition; keys outside ``[0, N)`` are dropped)."""
+    A CBF table takes its counters from ``arrays["bloom"]`` where
+    given. A static table takes the keys as row indices and assigns
+    those rows (one partition; keys outside ``[0, N)`` are dropped)."""
     ids = np.asarray(arrays["keys"], np.int64)
     if cfg.static_buckets:
         return _import_static(cfg, state, ids, arrays, extra_targets)
@@ -471,6 +633,10 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
               for name in (extra_targets or {})}
     dev = state.values.device
     capacity = cfg.capacity
+    if "bloom" in arrays and isinstance(cfg.ev_option.filter_option,
+                                        cfglib.CBFFilter):
+        state.bloom = torch.from_numpy(
+            np.array(arrays["bloom"], np.int32)).to(dev)
     for start in range(0, ids.shape[0], chunk):
         end = min(start + chunk, ids.shape[0])
         batch = np.concatenate(

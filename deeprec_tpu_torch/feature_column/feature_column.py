@@ -9,7 +9,7 @@ with the full and the compact wire format, state and optimizer-slot
 creation, and the single-device training side: the per-table training
 lookup with its unique budget, the per-column combine (one gather per
 table), the fused per-table combine (``combine_tables``) and the sparse
-optimizer apply.
+optimizer apply; and the checkpoint-time eviction pass (``shrink``).
 
 Batch convention:
   * numeric column ``name`` -> float32 [B] or [B, k]
@@ -499,6 +499,13 @@ class EmbeddingGroup:
                 self.tables[tname], slot_states[tname], st.values,
                 gl.lks[tname], g, global_step, lr=lr)
         return slot_states, states
+
+    def shrink(self, states, global_step: int):
+        """Checkpoint-time eviction over every table, in place
+        (``variable.shrink``); returns ``states``."""
+        for tname, cfg in self.tables.items():
+            states[tname] = ev.shrink(cfg, states[tname], global_step)
+        return states
 
     @staticmethod
     def _unique_budget(tcols, widths, ids_shape) -> Optional[int]:

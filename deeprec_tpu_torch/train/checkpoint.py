@@ -2,24 +2,30 @@
 
 Port of ``CheckpointManager`` from ``deeprec_tpu/train/checkpoint.py``.
 A checkpoint is a directory ``full-<step>`` or ``incr-<step>`` holding
-``meta.json``, ``dense.npz`` and one ``table-<name>-s<shard>.npz`` per
-table shard. ``dense.npz`` keys its leaves by JAX tree-path strings:
+``meta.json``, ``dense.npz``, one ``table-<name>-s<shard>.npz`` per
+table shard and, where resources are registered (``register_aux``),
+``aux.json``. ``dense.npz`` keys its leaves by JAX tree-path strings:
 ``['params']/['deep']/['dense_0']/['kernel']`` for the params and
-``['dense_opt']/[0]/.sum_of_squares/['deep']/['dense_0']/['kernel']``
-for the dense Adagrad state (optax's ``(ScaleByRssState, EmptyState)``).
+``['dense_opt']/[0]/.<field>/...`` for the dense optimizer's state
+(optax's ``(ScaleByRssState(sum_of_squares), EmptyState())`` for
+Adagrad, ``(ScaleByAdamState(count, mu, nu), EmptyState())`` for Adam).
 A table file holds the 4-tensor EV format (keys/values/freqs/versions)
 plus the sparse optimizer's state: its row-aligned slot arrays as
 ``slot/['<name>']`` (``accum``; ``m`` and ``v``; ``accum`` and
 ``linear``), one row per key, and its other leaves as
-``scalar/['beta1_power']``, ``scalar/['beta2_power']``. A
-static hash-bucket table is saved in full on every save, incremental
-ones included, keyed by row index. The JAX package and the port read
-each other's checkpoints, optimizer state included.
+``scalar/['beta1_power']``, ``scalar/['beta2_power']``; a CBF table's
+counters as ``bloom``; an incremental save's ``tombstones``, the keys
+evicted since the last save (``shrink_tables``) that are not live
+again. A static hash-bucket table is saved in full on every save,
+incremental ones included, keyed by row index. The JAX package and the
+port read each other's checkpoints, optimizer state included.
 
 Restore fills what the template state carries: a template without
 optimizer state (serving) skips the ``slot/*``, ``scalar/*`` and
-``dense_opt`` leaves. Non-empty ``tombstones`` (eviction replay) and
-multi-tier spill files raise ``NotImplementedError``.
+``dense_opt`` leaves. A delta's ``bloom`` replaces the counters; its
+``tombstones`` are deleted after its rows are written, so an evicted
+key does not come back and a re-inserted one stays. Multi-tier spill
+files raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import json
 import os
 import re
 import shutil
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,10 +46,11 @@ from deeprec_tpu_torch.embedding import hash_table as ht
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.feature_column.feature_column import EmbeddingGroup
 from deeprec_tpu_torch.train.loop import TrainState
+from deeprec_tpu_torch.utils import keys as keylib
 
 _PATH_PART = re.compile(r"^\['(.+)'\]$")
 _PARAMS = "['params']"
-_DENSE_OPT = "['dense_opt']/[0]/.sum_of_squares"
+_DENSE_OPT = "['dense_opt']/[0]"
 
 
 def _flatten_params(tree, prefix="['params']") -> Dict[str, np.ndarray]:
@@ -77,10 +84,15 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str):
 
 
 def _dense_leaves(ts: TrainState) -> Dict[str, np.ndarray]:
+    """The params and the dense optimizer's fields (a state dict of
+    per-parameter tensors, or one tensor such as Adam's ``count``)."""
     flat = _flatten_params(wdl_params_to_numpy(ts.params), _PARAMS)
-    if ts.dense_opt:
-        flat.update(_flatten_params(
-            wdl_params_to_numpy(ts.dense_opt["sum_of_squares"]), _DENSE_OPT))
+    for name, v in ts.dense_opt.items():
+        key = f"{_DENSE_OPT}/.{name}"
+        if isinstance(v, dict):
+            flat.update(_flatten_params(wdl_params_to_numpy(v), key))
+        else:
+            flat[key] = v.cpu().numpy()
     return flat
 
 
@@ -115,6 +127,7 @@ def _export_table(cfg, state: ev.EVState, slots: Dict[str, torch.Tensor],
     for a static table always, a delta is a full dump, as in the JAX
     package), and the scalar slots."""
     out = ev.export_arrays(cfg, state)
+    out.pop("bloom", None)
     rows = _row_aligned(cfg, slots)
     if rows:
         idx = _live_rows(cfg, state)
@@ -127,6 +140,8 @@ def _export_table(cfg, state: ev.EVState, slots: Dict[str, torch.Tensor],
     for k, v in slots.items():
         if k not in rows:
             out[f"scalar/['{k}']"] = v.cpu().numpy()
+    if state.bloom.shape[0] > 1:
+        out["bloom"] = state.bloom.cpu().numpy()
     return out
 
 
@@ -134,7 +149,16 @@ def _clone_ev(st: ev.EVState) -> ev.EVState:
     return dataclasses.replace(
         st, table=ht.HashTable(st.table.key_rows.clone()),
         values=st.values.clone(), freqs=st.freqs.clone(),
-        versions=st.versions.clone())
+        versions=st.versions.clone(), bloom=st.bloom.clone())
+
+
+def _live_keys(cfg, state: ev.EVState) -> np.ndarray:
+    """int64 keys of the table's live slots (a static table: its row
+    indices)."""
+    if cfg.static_buckets:
+        return np.arange(cfg.capacity, dtype=np.int64)
+    pair = state.table.key_pair[ht.live_mask(state.table)].cpu().numpy()
+    return keylib.join_ids(pair[:, 0], pair[:, 1])
 
 
 def _set_scalars(slots: Dict[str, torch.Tensor],
@@ -154,7 +178,40 @@ class CheckpointManager:
         self.dir = directory
         self.group = group
         self.keep = keep
+        # Keys evicted by ``shrink_tables`` since the last save, per
+        # table: the next incremental save writes them as tombstones, so
+        # a full + delta restore does not bring them back.
+        self._tombstones: Dict[str, set] = {}
+        # Saveable resources riding every checkpoint (a WorkQueue):
+        # name -> (get_state, set_state), JSON-serializable state.
+        self._aux: Dict[str, tuple[Callable[[], Any],
+                                   Callable[[Any], None]]] = {}
         os.makedirs(directory, exist_ok=True)
+
+    def register_aux(self, name: str, get_state: Callable[[], Any],
+                     set_state: Callable[[Any], None]):
+        """Attach a saveable resource: ``get_state()`` is written into
+        ``aux.json`` at every save, ``set_state(state)`` is called with
+        it by every applied checkpoint that holds it (the newest
+        wins)."""
+        self._aux[name] = (get_state, set_state)
+
+    def shrink_tables(self, ts: TrainState,
+                      global_step: Optional[int] = None) -> TrainState:
+        """Checkpoint-time eviction (``group.shrink``, in place, at
+        ``global_step``, by default the state's step) with every
+        evicted key journaled for the next incremental save's
+        tombstones. Use it, not a bare ``group.shrink``, whenever
+        incremental checkpoints are written. Returns ``ts``."""
+        step = int(ts.step) if global_step is None else int(global_step)
+        tables = self.group.tables
+        before = {t: _live_keys(c, ts.ev[t]) for t, c in tables.items()}
+        self.group.shrink(ts.ev, step)
+        for t, cfg in tables.items():
+            gone = np.setdiff1d(before[t], _live_keys(cfg, ts.ev[t]))
+            if gone.size:
+                self._tombstones.setdefault(t, set()).update(gone.tolist())
+        return ts
 
     def _steps(self, kind: str):
         pat = re.compile(rf"{kind}-(\d+)$")
@@ -177,9 +234,15 @@ class CheckpointManager:
             arrs = _export_table(cfg, ts.ev[tname],
                                  ts.slots.get(tname, {}), min_version)
             if incremental:
-                # No eviction in the port: the deletion record is empty.
-                arrs["tombstones"] = np.zeros((0,), np.int64)
+                # Journaled evictions minus keys inserted again since.
+                journal = np.fromiter(self._tombstones.get(tname, ()),
+                                      np.int64)
+                arrs["tombstones"] = np.setdiff1d(
+                    journal, _live_keys(cfg, ts.ev[tname]))
             np.savez(os.path.join(tmp, f"table-{tname}-s0.npz"), **arrs)
+        if self._aux:
+            with open(os.path.join(tmp, "aux.json"), "w") as f:
+                json.dump({n: get() for n, (get, _) in self._aux.items()}, f)
         meta = {
             "step": step,
             "kind": kind,
@@ -193,6 +256,9 @@ class CheckpointManager:
         if os.path.exists(path):
             shutil.rmtree(path)
         os.rename(tmp, path)
+        # The snapshot or delta just written holds every journaled
+        # eviction.
+        self._tombstones.clear()
         self._gc()
         return path
 
@@ -255,9 +321,23 @@ class CheckpointManager:
             with np.load(dense_path, allow_pickle=False) as z:
                 flat = dict(z)
             params = _dense_tree(flat, _PARAMS, ts.params, name)
-            if ts.dense_opt:
-                dense_opt = {"sum_of_squares": _dense_tree(
-                    flat, _DENSE_OPT, ts.dense_opt["sum_of_squares"], name)}
+            dense_opt = {}
+            for field, v in ts.dense_opt.items():
+                key = f"{_DENSE_OPT}/.{field}"
+                if isinstance(v, dict):
+                    dense_opt[field] = _dense_tree(flat, key, v, name)
+                elif key in flat:
+                    dense_opt[field] = torch.from_numpy(
+                        np.array(flat[key])).to(v.device, v.dtype)
+                else:
+                    raise KeyError(f"{name}: no dense leaf {key}")
+        aux_path = os.path.join(path, "aux.json")
+        if self._aux and os.path.exists(aux_path):
+            with open(aux_path) as f:
+                aux = json.load(f)
+            for n, (_, setter) in self._aux.items():
+                if n in aux:
+                    setter(aux[n])
         new_ev = dict(ts.ev) if full else {t: _clone_ev(s)
                                            for t, s in ts.ev.items()}
         new_slots = {t: {k: v.clone() for k, v in sl.items()}
@@ -271,6 +351,7 @@ class CheckpointManager:
                       *(f"slot/{k}" for k in rows))
             merged: Dict[str, list] = {}
             scalars: Dict[str, np.ndarray] = {}
+            bloom = tombs = None
             for si in range(n_saved):
                 fn = os.path.join(path, f"table-{tname}-s{si}.npz")
                 if not os.path.exists(fn):
@@ -281,15 +362,26 @@ class CheckpointManager:
                     for k in z.files:
                         if k.startswith("scalar/"):
                             scalars[k[len("scalar/"):]] = z[k]
-                    if "tombstones" in z.files and z["tombstones"].size:
-                        raise NotImplementedError(
-                            f"{name}: table {tname} carries eviction "
-                            "tombstones; their replay is not ported")
+                    if "bloom" in z.files:
+                        bloom = z["bloom"]
+                    if "tombstones" in z.files:
+                        tombs = z["tombstones"]
             if "keys" not in merged:
                 continue
-            ev.import_arrays(cfg, new_ev[tname],
+            st = new_ev[tname]
+            ev.import_arrays(cfg, st,
                              {k: np.concatenate(v) for k, v in merged.items()},
                              extra_targets=rows)
             _set_scalars(slots, scalars)
+            if bloom is not None and n_saved == 1:
+                # Counters restore only onto the shard count that saved
+                # them, as in the JAX package (here: one shard).
+                st.bloom = torch.from_numpy(np.array(bloom, np.int32)).to(
+                    st.bloom.device)
+            if tombs is not None and tombs.size:
+                # After the upserts: an evicted key stays gone, a key
+                # inserted again since (absent from the tombstones)
+                # stays live.
+                ev.delete_keys(cfg, st, tombs)
         return ts.replace(params=params, dense_opt=dense_opt, ev=new_ev,
                           slots=new_slots, step=int(meta["step"]))

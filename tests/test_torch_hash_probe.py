@@ -99,6 +99,73 @@ def test_kernel_matches_plain_at_width(cuda_device):
 
 
 @pytest.mark.cuda
+def test_kernel_matches_plain_on_shrunk_table_with_mask(cuda_device):
+    """A CBF table's inserts after an eviction: a 2**14-slot table with
+    GlobalStepEvict filled by ``lookup_train``, shrunk (tombstones in
+    the chains), then P1 inserts with an admission mask that leaves about
+    a third of the ids out, and a ``delete_keys`` replay through P1's
+    ``find``, each against the plain version on a copy."""
+    from deeprec_tpu_torch import config as cfglib
+    from deeprec_tpu_torch.embedding import lookup as lkup
+    from deeprec_tpu_torch.embedding import variable as ev
+
+    cfg = cfglib.TableConfig(
+        name="t", dim=4, capacity=1 << 14,
+        ev_option=cfglib.EmbeddingVariableOption(
+            filter_option=cfglib.CBFFilter(filter_freq=2,
+                                           num_counters=1 << 12),
+            evict_option=cfglib.GlobalStepEvict(steps_to_live=1)))
+    st = ev.create(cfg, cuda_device)
+    r = np.random.default_rng(8)
+    for step in range(4):
+        ids = r.integers(step * 3000, step * 3000 + 6000, size=8192)
+        dd = lkup.dedup(*_ids(ids, cuda_device))
+        st, _ = ev.lookup_train(cfg, st, dd.uhi, dd.ulo, dd.counts, step)
+    live = int(ev.num_live(st))
+    ev.shrink(cfg, st, 4)
+    assert 0 < int(ev.num_live(st)) < live
+    hi, lo = _ids(r.integers(0, 20_000, size=8192), cuda_device)
+    mask = torch.from_numpy(r.random(8192) < 0.66).to(cuda_device)
+    pt = ht.HashTable(st.table.key_rows.clone())
+    _, s_k, n_k = ht.find_or_insert(st.table, hi, lo, mask)
+    stats = {}
+    _, s_p, n_p = ht.find_or_insert_reference(pt, hi, lo, mask, stats=stats)
+    assert torch.equal(s_k, s_p) and torch.equal(n_k, n_p)
+    assert torch.equal(st.table.key_rows, pt.key_rows)
+    assert bool((s_k[~mask] < cfg.capacity).any())   # found, not inserted
+    keys = np.concatenate([r.permutation(20_000)[:9000],
+                           r.integers(0, 20_000, size=100)])
+    khi, klo = _ids(keys[:8192], cuda_device)
+    assert torch.equal(ht.find(st.table, khi, klo),
+                       ht.find_reference(st.table, khi, klo))
+    before = hash_probe.launches["find"]
+    ev.delete_keys(cfg, st, keys)
+    # 9,000 distinct keys: two chunks of 8,192, one launch each.
+    assert hash_probe.launches["find"] == before + 2
+    assert bool((ht.find(st.table, khi, klo) == cfg.capacity).all())
+
+
+@pytest.mark.cuda
+def test_dedup_captures_in_cuda_graph(cuda_device):
+    """``lookup.dedup`` reads nothing back to the host: it captures in a
+    CUDA graph, and the replay equals the eager result."""
+    from deeprec_tpu_torch.embedding import lookup as lkup
+
+    ids = np.random.default_rng(9).integers(-50, 50, size=4096)
+    ids[::5] = pc.EMPTY
+    hi, lo = _ids(ids, cuda_device)
+    want = lkup.dedup(hi, lo)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = lkup.dedup(hi, lo)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_no_host_sync_in_find_and_training_lookup(cuda_device):
     from deeprec_tpu_torch import config as cfglib
     from deeprec_tpu_torch.embedding import variable as ev

@@ -203,10 +203,14 @@ def test_dense_params_and_state_match(run):
 def test_unported_paths_raise():
     from deeprec_tpu_torch.embedding import variable as tev
 
+    # CBF tables are ported; their sort-free lookup still refuses them,
+    # as the JAX package's does (they take the sorted path).
     cbf = tcfg.EmbeddingVariableOption(filter_option=tcfg.CBFFilter(2))
-    with pytest.raises(NotImplementedError, match="CBF"):
-        tev.create(tcfg.TableConfig(name="c", dim=4, capacity=64,
-                                    ev_option=cbf), "cpu")
+    ccfg = tcfg.TableConfig(name="c", dim=4, capacity=64, ev_option=cbf)
+    with pytest.raises(ValueError, match="CBF"):
+        tev.lookup_train_occ(ccfg, tev.create(ccfg, "cpu"),
+                             torch.zeros(2, dtype=torch.int32),
+                             torch.arange(2, dtype=torch.int32), 0)
     cfg = tcfg.TableConfig(name="d", dim=4, capacity=64, block_num=2,
                            dyn_dim_thresholds=(2,))
     st = tev.create(cfg, "cpu")

@@ -132,10 +132,11 @@ def test_combine_bags(combiner):
 
 
 def test_unported_table_options_raise():
-    with pytest.raises(NotImplementedError, match="CBF"):
-        tev.create(tcfg.TableConfig(
-            "t", 4, 64, ev_option=tcfg.EmbeddingVariableOption(
-                filter_option=tcfg.CBFFilter(2))), "cpu")
+    # CBF admission is ported: the table gets its full counter array.
+    st = tev.create(tcfg.TableConfig(
+        "t", 4, 64, ev_option=tcfg.EmbeddingVariableOption(
+            filter_option=tcfg.CBFFilter(2, num_counters=256))), "cpu")
+    assert st.bloom.shape == (256,) and st.bloom.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="multi-tier"):
         tev.create(tcfg.TableConfig(
             "t", 4, 64, ev_option=tcfg.EmbeddingVariableOption(

@@ -136,7 +136,7 @@ def profile(args, path: str):
     out["step_ms"] = per_batch("4 step on staged batches", steps_only)
     tr.ts = ts
     out["n_overflow"] = [int(x) for x in overflow]
-    out["live_keys"] = {t: ev.num_live(st) for t, st in ts.ev.items()}
+    out["live_keys"] = {t: int(ev.num_live(st)) for t, st in ts.ev.items()}
     out["capacity"] = {t: c.capacity for t, c in tr.group.tables.items()}
     print(f"4 n_overflow per step {out['n_overflow']}; live keys "
           f"{out['live_keys']} of capacity {out['capacity']}", flush=True)

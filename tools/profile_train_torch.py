@@ -303,7 +303,7 @@ def main():
     device_split(args.trace, PROFILED_STEPS)
     print(f"profiled steps: n_overflow "
           f"{[int(m['n_overflow']) for m in metrics]}; live keys "
-          f"{ {t: ev.num_live(st) for t, st in ts.ev.items()} }", flush=True)
+          f"{ {t: int(ev.num_live(st)) for t, st in ts.ev.items()} }", flush=True)
 
 
 if __name__ == "__main__":
