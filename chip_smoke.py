@@ -139,6 +139,29 @@ non-zero:
    graph; ``dedup``'s device time against ``lookup_train_occ``'s claim
    dedup on the same ids.
 
+20. (n) ``epoch``: the headline model (B = 16,384, full width) trained
+   on a pool of 8 pre-packed batches for 2 epochs twice from one state:
+   by the eager loop and by ``make_epoch_step`` (step 0 eager, then the
+   step captured once in a CUDA graph and replayed, under
+   ``set_sync_debug_mode("error")``); losses ``[2, 8]`` and every state
+   tensor (tables, accumulators, key rows, metadata, dense params and
+   their state) bit-equal, else the first differing tensor is named.
+   The eager loop's median synchronized step, the replays' device ms a
+   step (CUDA events) and the host's enqueue ms a step. K1, K2, P1 and
+   P2 launch counts reset just before the captured call and read just
+   after (step 0 and the capture; each replay relaunches what was
+   captured). A ``micro_batch_num=4`` step from a copy of the trained
+   state against the full-batch step (loss rtol 1e-5; tables and dense
+   params rtol 1e-4, atol 1e-6, as ``tests/test_train_features.py``;
+   ``n_overflow`` 0), then both timed over 5 more steps in turns. Each
+   kernel against its plain version on the operands of the epoch's
+   first step (the pool's first batch on the state it started from), as
+   in phase 8. Then ``SparseAdam`` (K3) with dense Adam for a pool of
+   4, one epoch, eager against captured, bit-equal (the beta powers and
+   Adam's count advance at every replay), K3 against its plain version.
+   Last, ``tools/train_wdl_torch.py 16 --pool 8`` at full width in this
+   process: finite losses, 0 < AUC < 1.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -223,6 +246,17 @@ EV_CBF_ARGS = ["wdl", "--batch_size", str(BATCH), "--bf16", "--ev", "--cbf",
                "6", "--incremental_ckpt", "2", "--eval_steps", "4",
                "--log_steps", "4"]
 EV_CBF_STEPS = (2, 4)
+# Phase 20 (n): pool size and epochs of the captured headline run, the
+# pool of its Adam run (one epoch), the micro-batches of its micro-batch
+# step with that step's tolerances against the full batch
+# (tests/test_train_features.py:48-56), and the cut-down tool run.
+EPOCH_POOL, EPOCH_EPOCHS = 8, 2
+EPOCH_ADAM_POOL = 4
+MICRO_BATCHES = 4
+MICRO_LOSS_RTOL = 1e-5
+MICRO_RTOL, MICRO_ATOL = 1e-4, 1e-6
+MICRO_TIMED_STEPS = 5
+TRAIN_WDL_ARGS = ["16", "--pool", "8"]
 
 
 def log(msg: str):
@@ -1993,6 +2027,251 @@ def phase_ev_cbf(tmp: str, device="cuda"):
     return launches, fetch, applies, probes, draws, find_recs
 
 
+def _state_tensors(x, path=""):
+    """(path, tensor) of every tensor of a train state, in order."""
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _state_tensors(v, f"{path}/{k}")
+    elif hasattr(x, "__dataclass_fields__"):
+        for k in x.__dataclass_fields__:
+            yield from _state_tensors(getattr(x, k), f"{path}.{k}")
+
+
+def _epoch_launch_counts(kind):
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    return {"gather_rows": gather.launches,
+            f"{kind}_apply_rows": sa.launches[f"{kind}_apply_rows"],
+            "hash_probe_insert": hash_probe.launches["find_or_insert"],
+            "init_fresh_rows": init_rows.launches}
+
+
+def _reset_launch_counts(kind):
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    gather.launches = 0
+    sa.launches[f"{kind}_apply_rows"] = 0
+    hash_probe.launches["find_or_insert"] = 0
+    init_rows.launches = 0
+
+
+def eager_vs_graph(tr, pool, n_epochs: int, kind: str, label: str):
+    """``tr.ts`` trained on ``pool`` for ``n_epochs`` twice: a copy by
+    the eager loop (each step synchronized and timed), ``tr.ts`` itself
+    by the captured ``make_epoch_step``, with the launch counts reset
+    just before that call and read just after. Losses and every state
+    tensor must be bit-equal. Returns (the eager run's state, launches,
+    graph replays)."""
+    from deeprec_tpu_torch.train import loop
+
+    eager = loop.clone_state(tr.ts)
+    want, ms = [], []
+    for _ in range(n_epochs):
+        for b in pool:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager, m = tr.step(eager, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            want.append(m["loss"])
+    want = torch.stack(want)
+    epoch = loop.make_epoch_step(tr.group, tr.apply_fn, tr.loss_fn,
+                                 tr.sparse_opt, tr.dense_opt,
+                                 n_epochs=n_epochs)
+    stacked = loop.stack_batches(pool)
+    torch.cuda.synchronize()
+    _reset_launch_counts(kind)                # the main path starts here
+    t0 = time.perf_counter()
+    tr.ts, losses = epoch(tr.ts, stacked)
+    launches = _epoch_launch_counts(kind)     # the main path ends here
+    replay_ms = epoch.replay_ms()
+    call_s = time.perf_counter() - t0
+    run = epoch.last_run
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase {label}: the captured epoch did not "
+                             f"launch every kernel: {launches}")
+    shape = (len(pool),) if n_epochs == 1 else (n_epochs, len(pool))
+    if tuple(losses.shape) != shape or not torch.equal(
+            losses.reshape(-1), want):
+        raise AssertionError(f"phase {label}: captured losses "
+                             f"{losses.tolist()} != eager {want.tolist()}")
+    if not torch.isfinite(losses).all():
+        raise FloatingPointError(f"phase {label}: losses {losses.tolist()}")
+    if tr.ts.step != eager.step:
+        raise AssertionError(f"phase {label}: steps {tr.ts.step} vs "
+                             f"{eager.step}")
+    paths = 0
+    for (p, g), (_, e) in zip(_state_tensors(tr.ts),
+                              _state_tensors(eager)):
+        paths += 1
+        if not torch.equal(g, e):
+            raise AssertionError(
+                f"phase {label}: the captured epoch and the eager loop "
+                f"differ first at {p}: max abs difference "
+                f"{float((g.double() - e.double()).abs().max())}")
+    n = run["steps"]
+    log(f"phase {label}: {kind}, {n_epochs} x {len(pool)} steps of "
+        f"B={pool[0]['label'].shape[0]}: the "
+        f"captured epoch equals the eager loop bit for bit (losses "
+        f"{[round(x, 6) for x in losses.reshape(-1).tolist()]}, "
+        f"{paths} state tensors); eager median synchronized step "
+        f"{float(np.median(ms)):.3f} ms (min {min(ms):.3f}); graph "
+        f"{run['replays']} replays, {replay_ms / run['replays']:.3f} ms a "
+        f"step (CUDA events, back to back), host enqueue "
+        f"{run['enqueue_s'] / run['replays'] * 1e3:.4f} ms a step, 0 host "
+        f"syncs between the first and the last replay (they ran under "
+        f"set_sync_debug_mode('error')); the whole call {call_s:.3f} s "
+        f"(step 0 eager, capture, replays); wrapper launches (step 0 and "
+        f"the capture) {launches}")
+    return eager, launches, run["replays"]
+
+
+def _within(a, b, rtol, atol):
+    """(whether ``a`` is within ``rtol``/``atol`` of ``b``, max abs
+    difference)."""
+    d = (a.double() - b.double()).abs()
+    return (bool((d <= atol + rtol * b.double().abs()).all()),
+            float(d.max()) if d.numel() else 0.0)
+
+
+def micro_vs_full(tr, ts, label: str):
+    """One ``micro_batch_num=MICRO_BATCHES`` step from a copy of ``ts``
+    against the full-batch step from ``ts``, on a new batch."""
+    from deeprec_tpu_torch.train import loop
+
+    micro = loop.make_train_step(tr.group, tr.apply_fn, tr.loss_fn,
+                                 tr.sparse_opt, tr.dense_opt,
+                                 micro_batch_num=MICRO_BATCHES)
+    mts = loop.clone_state(ts)
+    b = tr.next_batch()
+    out = {}
+    for name, step, state in (("micro", micro, mts), ("full", tr.step, ts)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out[name] = (state, m, (time.perf_counter() - t0) * 1e3)
+    (mts, mm, m_ms), (fts, fm, f_ms) = out["micro"], out["full"]
+    lm, lf = float(mm["loss"]), float(fm["loss"])
+    errs = {}
+    for tname, st in fts.ev.items():
+        if not torch.equal(st.table.key_rows, mts.ev[tname].table.key_rows):
+            raise AssertionError(f"phase {label}: key rows differ")
+        for what, a, w in (("values", mts.ev[tname].values, st.values),
+                           ("accum", mts.slots[tname]["accum"],
+                            fts.slots[tname]["accum"])):
+            errs[f"{tname.split(':')[0]}.{what}"] = _within(
+                a, w, MICRO_RTOL, MICRO_ATOL)
+    for k, v in fts.params.items():
+        errs[k] = _within(mts.params[k], v, MICRO_RTOL, MICRO_ATOL)
+    bad = {k: e for k, (ok, e) in errs.items() if not ok}
+    overflow = (int(mm["n_overflow"]), int(fm["n_overflow"]))
+    table_err = max(e for k, (_, e) in errs.items() if k not in fts.params)
+    param_err = max(e for k, (_, e) in errs.items() if k in fts.params)
+    log(f"phase {label}: micro_batch_num={MICRO_BATCHES} step {m_ms:.3f} ms "
+        f"against the full-batch step {f_ms:.3f} ms (synchronized, one "
+        f"step each): loss {lm:.8f} vs {lf:.8f} (relative "
+        f"{abs(lm - lf) / abs(lf):.3e}); largest abs differences: tables "
+        f"{table_err:.3e}, dense params {param_err:.3e}; n_overflow "
+        f"{overflow}")
+    if abs(lm - lf) > MICRO_LOSS_RTOL * abs(lf) or bad or any(overflow):
+        raise AssertionError(f"phase {label}: the micro-batched step is "
+                             f"outside its tolerances: loss {lm} vs {lf}, "
+                             f"{bad}, n_overflow {overflow}")
+    # The first step of each ran shapes new to the process; time more,
+    # each on its own state, in turns.
+    times = {"micro": [], "full": []}
+    for _ in range(MICRO_TIMED_STEPS):
+        b = tr.next_batch()
+        for name, step in (("micro", micro), ("full", tr.step)):
+            state = mts if name == "micro" else fts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, b)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"phase {label}: median synchronized step over "
+        f"{MICRO_TIMED_STEPS} more steps, in turns: micro_batch_num="
+        f"{MICRO_BATCHES} {med['micro']:.3f} ms, full batch "
+        f"{med['full']:.3f} ms")
+    return med["micro"]
+
+
+def phase_epoch(gather_err: float, apply_err: float):
+    """(n) the captured epoch step at full width; see the module's
+    docstring. Returns the kernels' records of the ``epoch`` path."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.optimizers import dense as dense_lib
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import loop
+
+    label = "20 (n)"
+    tr = bench.build_wdl(device="cuda")
+    pool = [tr.next_batch() for _ in range(EPOCH_POOL)]
+    start = loop.clone_state(tr.ts)
+    eager, launches, replays = eager_vs_graph(tr, pool, EPOCH_EPOCHS,
+                                              "adagrad", label)
+    micro_vs_full(tr, eager, label)
+    del eager
+    # The kernels on the operands of the epoch's first step: the pool's
+    # first batch on the state the epoch started from (every key new).
+    tr.ts = start
+    fetch, applies, probes, draws = _compare_step_kernels(
+        tr, "adagrad", f"{label} first pool batch", pool[0])
+    del tr, start, pool
+    _release()
+
+    tr = bench.build_wdl(device="cuda", sparse_opt=sparse_lib.SparseAdam())
+    tr.dense_opt = dense_lib.Adam(2e-3)
+    tr.ts.dense_opt = tr.dense_opt.init(tr.ts.params)
+    tr.step = loop.make_train_step(tr.group, tr.apply_fn, tr.loss_fn,
+                                   tr.sparse_opt, tr.dense_opt)
+    pool = [tr.next_batch() for _ in range(EPOCH_ADAM_POOL)]
+    start = loop.clone_state(tr.ts)
+    _, adam_launches, adam_replays = eager_vs_graph(tr, pool, 1, "adam",
+                                                    f"{label} Adam")
+    powers = {f"{tr.group.tables[t].dim} wide": float(sl["beta1_power"])
+              for t, sl in tr.ts.slots.items()}
+    count = int(tr.ts.dense_opt["count"])
+    if count != EPOCH_ADAM_POOL:
+        raise AssertionError(f"phase {label}: dense Adam's count {count}")
+    log(f"phase {label} Adam: beta1 powers after {EPOCH_ADAM_POOL} steps "
+        f"{powers} (0.9 ** {EPOCH_ADAM_POOL + 1} = "
+        f"{0.9 ** (EPOCH_ADAM_POOL + 1):.8f}), dense Adam's count {count}")
+    tr.ts = start
+    a_fetch, k3, _, _ = _compare_step_kernels(
+        tr, "adam", f"{label} Adam first pool batch", pool[0])
+    del tr, start, pool
+    _release()
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_wdl_torch
+    t0 = time.perf_counter()
+    out = train_wdl_torch.main(TRAIN_WDL_ARGS)
+    wall = time.perf_counter() - t0
+    vals = [out["loss_first"], out["loss_last"], *out["loss_epoch_means"]]
+    if not (all(np.isfinite(vals)) and 0.0 < out["auc"] < 1.0
+            and out["backend"] == "cuda"):
+        raise AssertionError(f"phase {label}: tools/train_wdl_torch.py "
+                             f"{' '.join(TRAIN_WDL_ARGS)}: {out}")
+    log(f"phase {label}: tools/train_wdl_torch.py "
+        f"{' '.join(TRAIN_WDL_ARGS)} at full width: AUC {out['auc']}, "
+        f"losses {vals}, {out['train_s_incl_compile']} s to train, "
+        f"{wall:.3f} s in all")
+    _release()
+    records = (_path_records("epoch", launches, fetch, applies, gather_err,
+                             apply_err, probes=probes, draws=draws)
+               + _path_records("epoch", adam_launches, a_fetch, k3,
+                               gather_err, apply_err, kind="adam")[1:])
+    for rec in records:
+        rec["graph_replays"] = (adam_replays if "adam" in rec["name"]
+                                else replays)
+    return records
+
+
 def _record(name, source, replaces, launches, err, rec, path):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2093,6 +2372,8 @@ def main():
     phase_fused_and_repeat()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ev_") as d:
         v_launches, v1, v2, vp, vi, vf = phase_ev_cbf(d)
+    _release()
+    epoch_records = phase_epoch(gather_err, apply_err)
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -2108,7 +2389,8 @@ def main():
                         probes=ep, draws=ei)
         + _path_records("ev_cbf", v_launches, v1, v2, gather_err, apply_err,
                         probes=vp, draws=vi)
-        + [_probe_record("ev_cbf", v_launches, vf, kind="find")])
+        + [_probe_record("ev_cbf", v_launches, vf, kind="find")]
+        + epoch_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

@@ -152,15 +152,18 @@ def build_wdl(reference_shapes: bool = True, device="cuda",
 
 
 def build_small(device="cuda", sparse_opt: str = "adagrad",
-                batch: int = 64) -> Trainer:
-    """The sizes of ``__graft_entry__._build``: dim-16
-    deep and dim-1 wide columns of capacity 1 << 14 (coalesced), towers
-    256/128/64 in float32, ids of a 5,000 vocabulary, freq and version
-    recorded."""
-    cols = wdl.criteo_columns(embedding_dim=16, capacity=1 << 14)
-    data = SyntheticCriteo(batch, vocab=5000, seed=0)
-    return _assemble(cols, (256, 128, 64), torch.float32, device,
-                     sparse_opt, data, wide=True, metric="wdl_small_loss")
+                batch: int = 64, *, capacity: int = 1 << 14,
+                hidden=(256, 128, 64), vocab: int = 5000,
+                dtype: torch.dtype = torch.float32) -> Trainer:
+    """The model of ``__graft_entry__._build``: dim-16 deep and dim-1
+    wide columns of ``capacity`` each (coalesced), freq and version
+    recorded, ids of a ``vocab`` vocabulary; at its sizes by default
+    (towers 256/128/64 in float32). ``tools/train_wdl_torch.py`` builds
+    it at its own."""
+    cols = wdl.criteo_columns(embedding_dim=16, capacity=capacity)
+    data = SyntheticCriteo(batch, vocab=vocab, seed=0)
+    return _assemble(cols, tuple(hidden), dtype, device, sparse_opt, data,
+                     wide=True, metric="wdl_small_loss")
 
 
 def bench_device(trainer: Trainer | None = None,

@@ -2,7 +2,7 @@
 of one table.
 
 Port of ``dedup``, ``combine_bags``, ``combine_from_occ``,
-``BagLookup`` and ``bag_lookup_train`` from
+``BagLookup``, ``bag_lookup_train`` and ``bag_lookup_infer`` from
 ``deeprec_tpu/embedding/lookup.py`` (combiners sum / mean / sqrtn over
 padded-dense ``[B, L]`` bags). CBF-filtered tables take the sorted path
 (``dedup``, then ``variable.lookup_train``), every other EV table the
@@ -102,7 +102,7 @@ class BagLookup(NamedTuple):
 
 
 def bag_lookup_train(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
-                     ids_lo, global_step: int, salt: int = 0,
+                     ids_lo, global_step: ev.Step, salt: int = 0,
                      unique_budget=None) -> tuple[ev.EVState, BagLookup]:
     """Training lookup for one padded-dense sparse feature [B, L]
     through :func:`variable.lookup_train_occ` (a static table:
@@ -133,3 +133,16 @@ def bag_lookup_train(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
         salt=salt, budget=unique_budget)
     return state, BagLookup(lk=occ.lk, inverse=occ.inverse.reshape(B, L),
                             mask=mask, n_overflow=occ.n_overflow)
+
+
+def bag_lookup_infer(cfg: cfglib.TableConfig, state: ev.EVState, ids_hi,
+                     ids_lo) -> torch.Tensor:
+    """Inference lookup of one padded-dense feature [B, L] through
+    :func:`variable.lookup`: no dedup bookkeeping, no mutation; every
+    occurrence reads its own row, combined by the table's combiner.
+    Returns [B, dim]."""
+    B, L = ids_hi.shape
+    rows = ev.lookup(cfg, state, ids_hi.reshape(-1), ids_lo.reshape(-1))
+    mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
+    inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
+    return combine_bags(rows, inverse, mask, cfg.combiner)

@@ -22,7 +22,7 @@ a copy per step or per import chunk would not fit.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +33,20 @@ from deeprec_tpu_torch.ops.kernels import gather
 from deeprec_tpu_torch.ops.kernels import init_rows as init_kernel
 from deeprec_tpu_torch.utils import keys as keylib
 from deeprec_tpu_torch.utils import stateless_random as srand
+
+
+# The global step a training lookup stamps into versions: a Python int,
+# or a 0-dim int32 tensor on the table's device (the form a step captured
+# in a CUDA graph reads at each replay). Both give bit-identical state.
+Step = Union[int, torch.Tensor]
+
+
+def step_fill(shape, global_step: Step, device) -> torch.Tensor:
+    """int32 tensor of ``shape`` holding ``global_step`` everywhere: a
+    fill for an int, a broadcast copy of a 0-dim tensor (no host read)."""
+    if isinstance(global_step, torch.Tensor):
+        return global_step.to(torch.int32).expand(shape).clone()
+    return torch.full(shape, global_step, dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
@@ -187,7 +201,7 @@ def _default_sel(state: EVState, qhi, qlo):
 
 
 def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
-                 global_step: int, salt: int = 0
+                 global_step: Step, salt: int = 0
                  ) -> tuple[EVState, LookupResult]:
     """Training lookup of deduplicated ids ``[n]`` (padding: the EMPTY
     id) with their occurrence ``counts`` in the step, as
@@ -299,7 +313,7 @@ def claim_dedup(slots, is_real, capacity: int):
 
 
 def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
-                     global_step: int, salt: int = 0,
+                     global_step: Step, salt: int = 0,
                      budget: Optional[int] = None
                      ) -> tuple[EVState, OccLookup]:
     """Training lookup straight from per-occurrence ids ``[n]``.
@@ -384,8 +398,7 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         init_kernel.init_fresh(state.values, is_new, slots, qhi, qlo,
                                cfg.initializer, cfg.init_scale, salt)
         u_new = u_in & u_new
-        prev_versions = torch.full(uslots.shape, global_step,
-                                   dtype=torch.int32, device=dev)
+        prev_versions = step_fill(uslots.shape, global_step, dev)
     prev_versions = prev_versions.to(torch.int32)
 
     f = cfg.ev_option.filter_option
@@ -411,7 +424,7 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
 
 
 def lookup_train_static(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
-                        global_step: int,
+                        global_step: Step,
                         budget: Optional[int] = None
                         ) -> tuple[EVState, OccLookup]:
     """Training lookup of a static hash-bucket table, whose ids the
@@ -446,8 +459,7 @@ def lookup_train_static(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
     lk = LookupResult(
         slots=uslots, rows=rows, admitted=uslots < N,
         is_new=torch.zeros(uslots.shape, dtype=torch.bool, device=dev),
-        prev_versions=torch.full(uslots.shape, global_step,
-                                 dtype=torch.int32, device=dev),
+        prev_versions=step_fill(uslots.shape, global_step, dev),
         qhi=uhi, qlo=ulo)
     return state, OccLookup(lk=lk, inverse=inverse, n_overflow=n_overflow)
 

@@ -4,12 +4,13 @@ Port of ``deeprec_tpu/feature_column/feature_column.py``: columns,
 unsharded ``EmbeddingGroup`` construction with coalescing (EV tables of
 one signature share a physical table, told apart by XOR salts on both
 id halves; static hash-bucket tables of one dim class share a matrix,
-told apart by row offsets), id transforms, host-side batch packing
-with the full and the compact wire format, state and optimizer-slot
-creation, and the single-device training side: the per-table training
-lookup with its unique budget, the per-column combine (one gather per
-table), the fused per-table combine (``combine_tables``) and the sparse
-optimizer apply; and the checkpoint-time eviction pass (``shrink``).
+told apart by row offsets), id transforms, batch packing on the
+device and on the host (the latter with the full and the compact wire
+format), state and optimizer-slot creation, and the single-device
+training side: the per-table training lookup with its unique budget,
+the per-column combine (one gather per table), the fused per-table
+combine (``combine_tables``) and the sparse optimizer apply; and the
+checkpoint-time eviction pass (``shrink``).
 
 Batch convention:
   * numeric column ``name`` -> float32 [B] or [B, k]
@@ -303,6 +304,30 @@ class EmbeddingGroup:
         return hi2, np.where(hit, lo2 ^ np.int32(2), lo2)
 
     # -- packed batches ---------------------------------------------------
+    def pack_batch(self, batch):
+        """Device packing of a per-column batch (``SparseIds`` leaves on
+        any device): each physical table's ids, transformed (salts,
+        bucket rows) on their device, become one ``SparseIds`` pair
+        ``[B, sum(L)]``; other leaves pass through. Records the column
+        widths on the group (``_pack_widths``) on first use, as
+        :meth:`pack_batch_np` does, whose output it equals bit for bit
+        on the same raw ids."""
+        packed: Dict[str, Any] = {}
+        widths: Dict[str, list] = {}
+        for tname, tcols in self._columns_by_table().items():
+            his, los = zip(*(self.transform_ids(c, batch[c.name].hi,
+                                                batch[c.name].lo)
+                             for c in tcols))
+            packed[self.PACKED_PREFIX + tname] = SparseIds(
+                torch.cat(his, dim=1), torch.cat(los, dim=1))
+            widths[tname] = [int(h.shape[1]) for h in his]
+        if self._pack_widths is None:
+            self._pack_widths = widths
+        for k, v in batch.items():
+            if not isinstance(v, SparseIds):
+                packed[k] = v
+        return packed
+
     def pack_batch_np(self, batch, device="cuda", compact: bool = False):
         """Host packing of raw numpy leaves (int64 id matrices for sparse
         columns) into tensors on ``device``: each physical table's ids
@@ -417,7 +442,7 @@ class EmbeddingGroup:
         return {n: opt.init(c, device) for n, c in self.tables.items()}
 
     # -- training ---------------------------------------------------------
-    def lookup_train(self, states, batch, global_step: int):
+    def lookup_train(self, states, batch, global_step: ev.Step):
         """Returns ``(states, GroupLookup)``; the tables of ``states``
         are updated in place (inserts, row init, metadata)."""
         lks: Dict[str, ev.LookupResult] = {}
@@ -489,7 +514,8 @@ class EmbeddingGroup:
                 for tname, items, occ, _ in self._occurrences(gl, rows)}
 
     def apply_gradients(self, opt, slot_states, states, gl: GroupLookup,
-                        grad_rows: Dict[str, torch.Tensor], global_step: int,
+                        grad_rows: Dict[str, torch.Tensor],
+                        global_step: ev.Step,
                         lr=None):
         """Sparse-apply each table's row gradients, in place. Returns
         ``(slot_states, states)``."""

@@ -15,10 +15,11 @@ b2**c)``, ``u = mu_hat / (sqrt(nu_hat) + eps)`` and ``p = p + (-lr) *
 u``, in float32 with the count int32, as optax keeps it.
 
 Both are plain PyTorch, no kernel. Parameters and state update in
-place. A state is a dict whose entries are a tensor (``count``) or a
-state dict of per-parameter tensors (``sum_of_squares``; ``mu``,
-``nu``), named as optax's fields, so checkpoints carry it in the JAX
-package's layout.
+place, with no host tensor and no host read, so a training step
+captured in a CUDA graph replays them. A state is a dict whose entries
+are a tensor (``count``) or a state dict of per-parameter tensors
+(``sum_of_squares``; ``mu``, ``nu``), named as optax's fields, so
+checkpoints carry it in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -71,10 +72,10 @@ class Adam:
         """One step over every parameter, in place."""
         state["count"].add_(1)
         c = state["count"].to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
-                                         device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
-                                         device=c.device), c)
+        # The bases are filled on the device: a host tensor would be a
+        # copy from pageable memory, which a CUDA graph cannot capture.
+        bc1 = 1 - torch.pow(torch.full_like(c, self.b1), c)
+        bc2 = 1 - torch.pow(torch.full_like(c, self.b2), c)
         for k, p in params.items():
             g = grads[k]
             mu, nu = state["mu"][k], state["nu"][k]

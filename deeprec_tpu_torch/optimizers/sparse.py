@@ -5,8 +5,10 @@ Adagrad, AdagradDecay, Adam, AdamAsync, Ftrl and FtrlV2. Slot rows
 share the primary's slot index: slot arrays are ``[capacity+1, dim]``
 parallel to ``EVState.values``. Rows the feature filter did not admit
 get no update, and rows inserted this step start from fresh slot values
-(``lk.is_new``). Every apply updates the table and its slot rows in
-place; the JAX package returns new arrays.
+(``lk.is_new``). Every apply updates the table, its slot rows and
+Adam's beta powers in place; the JAX package returns new arrays.
+``global_step`` is a Python int or a 0-dim int32 tensor on the table's
+device (``variable.Step``), with bit-identical results.
 
 Adagrad, Adam and AdamAsync run one hand-written kernel per table and
 call (``ops/kernels/sparse_apply.py``: K2 for Adagrad, K3 for both
@@ -33,7 +35,8 @@ from typing import Optional
 import torch
 
 from deeprec_tpu_torch import config as cfglib
-from deeprec_tpu_torch.embedding.variable import LookupResult, _drop_idx
+from deeprec_tpu_torch.embedding.variable import (LookupResult, Step,
+                                                  _drop_idx)
 from deeprec_tpu_torch.ops.kernels import sparse_apply
 
 
@@ -80,7 +83,7 @@ class SparseSGD:
         return {}
 
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
-              global_step: int, lr: Optional[float] = None):
+              global_step: Step, lr: Optional[float] = None):
         """In place; returns ``(slot_state, values)``."""
         lr = self.learning_rate if lr is None else lr
         idx, upd, _ = _plain_gate(cfg, lk)
@@ -101,7 +104,7 @@ class SparseAdagrad:
                                     dtype=torch.float32, device=device)}
 
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
-              global_step: int, lr: Optional[float] = None):
+              global_step: Step, lr: Optional[float] = None):
         """In place; returns ``(slot_state, values)``."""
         upd = _gate(cfg, lk)
         lr = self.learning_rate if lr is None else lr
@@ -131,7 +134,7 @@ class SparseAdagradDecay:
                                     dtype=torch.float32, device=device)}
 
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
-              global_step: int, lr: Optional[float] = None):
+              global_step: Step, lr: Optional[float] = None):
         """In place; returns ``(slot_state, values)``."""
         lr = self.learning_rate if lr is None else lr
         idx, upd, safe = _plain_gate(cfg, lk)
@@ -174,9 +177,10 @@ class SparseAdam:
                 "beta2_power": scalar(self.beta2)}
 
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
-              global_step: int, lr: Optional[float] = None):
-        """In place on the rows; returns ``(slot_state, values)`` with the
-        beta powers advanced."""
+              global_step: Step, lr: Optional[float] = None):
+        """In place, the beta powers too (so a step captured in a CUDA
+        graph advances them at every replay); returns ``(slot_state,
+        values)``."""
         upd = _gate(cfg, lk)
         lr = self.learning_rate if lr is None else lr
         b1p = slot_state["beta1_power"]
@@ -185,8 +189,9 @@ class SparseAdam:
             values, slot_state["m"], slot_state["v"], lk.slots,
             grad_rows.contiguous(), self._alpha(lr, b1p, b2p), self.beta1,
             self.beta2, self.epsilon, update=upd, is_new=lk.is_new)
-        return {**slot_state, "beta1_power": b1p * self.beta1,
-                "beta2_power": b2p * self.beta2}, values
+        b1p.mul_(self.beta1)
+        b2p.mul_(self.beta2)
+        return slot_state, values
 
     def _alpha(self, lr, b1p, b2p):
         """K3's step size, a one-element tensor on the card: the
@@ -231,7 +236,7 @@ class SparseFtrl:
                                       device=device)}
 
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
-              global_step: int, lr: Optional[float] = None):
+              global_step: Step, lr: Optional[float] = None):
         """In place; returns ``(slot_state, values)``."""
         lr = self.learning_rate if lr is None else lr
         idx, upd, safe = _plain_gate(cfg, lk)

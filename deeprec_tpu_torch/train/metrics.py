@@ -41,7 +41,7 @@ class AucState(NamedTuple):
     neg: torch.Tensor
 
 
-def auc_init(num_buckets: int = 4096, device="cpu") -> AucState:
+def auc_init(num_buckets: int = 4096, device="cuda") -> AucState:
     return AucState(torch.zeros(num_buckets, dtype=torch.float32,
                                 device=device),
                     torch.zeros(num_buckets, dtype=torch.float32,

@@ -17,9 +17,12 @@ of ``tests/test_estimator.py``).
   accumulators key by key rtol 1e-5, atol 1e-6; held-out AUC within
   1e-4 (a histogram of scores that agree to float32 rounding).
 * ``tools/train_zoo_torch.py`` refuses what the port lacks before any
-  table is built.
+  table is built, and trains with ``--micro_batch 2``;
+  ``tools/train_wdl_torch.py --cpu`` prints ``tools/train_wdl.py``'s
+  JSON keys.
 """
 
+import json
 import os
 import sys
 
@@ -86,7 +89,7 @@ def test_metrics_match_jax():
             rtol=1e-6)
     one_class = torch.ones(4)
     assert float(tmetrics.batch_auc(torch.arange(4.0), one_class)) == 0.5
-    ts, js = tmetrics.auc_init(), jmetrics.auc_init()
+    ts, js = tmetrics.auc_init(device="cpu"), jmetrics.auc_init()
     for seed in range(4):
         lg, lb = _scores(10 + seed, 1000)
         ts = tmetrics.auc_update(ts, torch.from_numpy(lg),
@@ -380,15 +383,18 @@ def test_slice_incremental_checkpoints_carry_tombstones(slice_runs):
 
 # -- tools/train_zoo_torch.py ---------------------------------------------------
 
+def _tool(name):
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    return __import__(name)
+
+
 @pytest.mark.parametrize("argv, what", [
-    (["wdl", "--micro_batch", "2"], "queue 1 item 4"),
     (["wdl", "--adaptive_emb"], "queue 1 item 13"),
     (["deepfm"], "slice 4"),
 ])
 def test_train_zoo_refuses_unported_before_any_table(argv, what,
                                                      monkeypatch):
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import train_zoo_torch
+    train_zoo_torch = _tool("train_zoo_torch")
 
     def no_table(*a, **k):
         raise AssertionError("a table was built")
@@ -396,3 +402,35 @@ def test_train_zoo_refuses_unported_before_any_table(argv, what,
     monkeypatch.setattr(tev, "create", no_table)
     with pytest.raises(NotImplementedError, match=what):
         train_zoo_torch.main(argv + ["--cpu"])
+
+
+def test_train_zoo_runs_micro_batches(monkeypatch, capsys):
+    """``--micro_batch 2`` (refused until the port had micro-batches)
+    trains, at small sizes."""
+    train_zoo_torch = _tool("train_zoo_torch")
+    monkeypatch.setitem(train_zoo_torch.COLUMN_KWARGS, "wdl",
+                        dict(embedding_dim=4, capacity=1 << 8))
+    monkeypatch.setitem(train_zoo_torch.MODULE_KWARGS, "wdl",
+                        dict(hidden=(16, 8)))
+    out = train_zoo_torch.main(["wdl", "--micro_batch", "2", "--cpu",
+                                "--steps", "3", "--batch_size", "32",
+                                "--eval_steps", "2"])
+    assert out["steps"] == 3 and np.isfinite(out["final_loss"])
+    assert 0.0 <= out["auc"] <= 1.0
+
+
+def test_train_wdl_tool_prints_the_jax_tools_keys(capsys):
+    """``tools/train_wdl_torch.py --cpu`` at a tiny size: the whole run
+    is one epoch call, and its JSON line has ``tools/train_wdl.py``'s
+    keys."""
+    out = _tool("train_wdl_torch").main(
+        ["3", "--cpu", "--pool", "2", "--cap", "10", "--vocab", "1000",
+         "--hidden", "16,8", "--batch", "64"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert set(out) == {"metric", "auc", "mode", "backend", "steps",
+                        "batch", "loss_first", "loss_last",
+                        "loss_epoch_means", "train_s_incl_compile"}
+    assert out["backend"] == "cpu" and out["mode"] == "bf16"
+    assert out["steps"] == 4 and len(out["loss_epoch_means"]) == 2
+    assert 0.0 < out["auc"] < 1.0 and np.isfinite(out["loss_last"])

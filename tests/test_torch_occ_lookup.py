@@ -7,9 +7,12 @@ through both packages step by step from empty tables. Integer outputs
 and state are bit-exact: slots, ``admitted``, ``is_new``,
 ``prev_versions``, the unique ids, ``inverse``, ``n_overflow``, the hash
 key rows, freqs and versions. Rows and table values: rtol 1e-5, atol
-1e-6 (row inits whose log/cos come from another math library).
+1e-6 (row inits whose log/cos come from another math library). The JAX
+side runs jitted, as its training step runs it: eagerly, each step's
+probe loops compile anew.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,13 +71,14 @@ def test_lookup_train_occ_matches(case):
     kw, ids_list, budgets = CASES[case]
     jc, tc = _cfg(jcfg, **kw), _cfg(tcfg, **kw)
     jst, tst = jev.create(jc, salt=3), tev.create(tc, "cpu", salt=3)
+    jlookup = jax.jit(jev.lookup_train_occ, static_argnums=(0,),
+                      static_argnames=("salt", "budget"))
     overflows = []
     for gs, ids in enumerate(ids_list):
         budget = None if budgets is None else budgets[gs]
         hi, lo = jkeys.split_ids(ids)
-        jst, jocc = jev.lookup_train_occ(jc, jst, jnp.asarray(hi),
-                                         jnp.asarray(lo), gs, salt=3,
-                                         budget=budget)
+        jst, jocc = jlookup(jc, jst, jnp.asarray(hi), jnp.asarray(lo), gs,
+                            salt=3, budget=budget)
         tst, tocc = tev.lookup_train_occ(tc, tst, torch.from_numpy(hi),
                                          torch.from_numpy(lo), gs, salt=3,
                                          budget=budget)

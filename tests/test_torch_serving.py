@@ -259,10 +259,10 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.embedding.lookup, "
         "deeprec_tpu_torch.embedding.variable, "
         "deeprec_tpu_torch.train.estimator, deeprec_tpu_torch.train.metrics, "
-        "deeprec_tpu_torch.data.work_queue\n"
+        "deeprec_tpu_torch.data.work_queue, deeprec_tpu_torch.ops.fused\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
         "sys.path.insert(0, 'tools')\n"
-        "import train_zoo_torch\n"
+        "import train_zoo_torch, train_wdl_torch, profile_train_torch\n"
         "train_zoo_torch.columns(train_zoo_torch.parse_args(\n"
         "    ['wdl', '--ev', '--cbf', '--filter_freq', '2']))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

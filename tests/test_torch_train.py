@@ -223,6 +223,8 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="block_num"):
             opt.apply(cfg, opt.init(cfg, "cpu"), st.values, occ.lk,
                       torch.zeros_like(occ.lk.rows), 0)
-    with pytest.raises(NotImplementedError, match="micro_batch_num"):
+    # Micro-batches are ported; with a fused combine they are refused,
+    # as in the JAX package.
+    with pytest.raises(ValueError, match="micro_batch_num"):
         tloop.make_train_step(None, None, None, opt, None,
-                              micro_batch_num=2)
+                              micro_batch_num=2, combine_fn=lambda *a: a)

@@ -6,7 +6,7 @@ Run from the repository root on one CUDA card:
 
     python3 tools/profile_train_torch.py [--steps 20] [--opt adagrad]
         [--row headline|static|dim16|e2e] [--fresh] [--warmup 10]
-        [--trace build/train_trace_torch.json]
+        [--trace build/train_trace_torch.json] [--graph]
 
 It builds a WDL row of ``deeprec_tpu_torch.bench`` (by default the
 headline: reference shapes, B = 16,384, ``SparseAdagrad`` or
@@ -46,6 +46,17 @@ a batch no step has seen, as the e2e row's steps do. After
    device time, then the profiled steps'
    ``n_overflow`` and each table's live keys. The Chrome trace goes to
    ``--trace``.
+
+With ``--graph`` it times and profiles the step as
+``train.loop.make_epoch_step`` runs it on the card instead (step 0
+eager, then the step captured once in a CUDA graph and replayed): one
+call over the batches as a pool, enough epochs for ``--warmup`` +
+``--steps`` steps, timed on the device clock around the replays (ms a
+step, samples/s) and on the host (the enqueue of a replay); then
+``torch.profiler`` over a call on the first 6 batches, whose 5 replays
+are the profiled steps: busy share, device time a step and the kernels
+that take the most. Inside a replay there are no layer spans: its
+device time is charged to "other".
 
 The spans are added here by rebinding the functions the step calls
 through their modules; the package itself carries no spans.
@@ -120,7 +131,11 @@ def device_split(trace_path: str, steps: int):
                  and "correlation" in e.get("args", {})}
     marks = [e for e in events if e.get("cat") == "user_annotation"
              and e["name"] == "train_step"]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    t0 = min(e["ts"] for e in marks)
+    # Only what the profiled steps ran (a captured epoch's eager step 0
+    # and its capture come before its first replay).
+    device = [e for e in events if e.get("cat") in DEVICE_CATS
+              and e["ts"] >= t0]
     by_stage = collections.Counter()
     by_kernel = collections.Counter()
     for e in device:
@@ -137,7 +152,6 @@ def device_split(trace_path: str, steps: int):
                 stage = best[1]
         by_stage[stage] += e["dur"]
         by_kernel[e["name"][:90]] += e["dur"]
-    t0 = min(e["ts"] for e in marks)
     t1 = max(max(e["ts"] + e["dur"] for e in marks),
              max(e["ts"] + e["dur"] for e in device))
     busy, end = 0.0, t0
@@ -221,6 +235,56 @@ def e2e_batches(tr, n: int) -> list:
         return [batch_to(b, tr.device) for b in bench.e2e_batches(tr, path)]
 
 
+def profile_graph(tr, batches, args) -> None:
+    """``--graph``: the captured epoch step over ``batches`` as its
+    pool, timed, then profiled over 5 replays."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.train.loop import make_epoch_step, stack_batches
+
+    def epoch_step(n_epochs):
+        return make_epoch_step(tr.group, tr.apply_fn, tr.loss_fn,
+                               tr.sparse_opt, tr.dense_opt,
+                               n_epochs=n_epochs)
+
+    K = len(batches)
+    E = max(1, -(-(args.warmup + args.steps) // K))
+    epoch = epoch_step(E)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, losses = epoch(tr.ts, stack_batches(batches))
+    replays = epoch.last_run["replays"]
+    ms = epoch.replay_ms() / replays
+    wall = time.perf_counter() - t0
+    print(f"graph: {E * K} steps in one call, {wall:.3f} s (step 0 eager, "
+          f"the capture, {replays} replays); replays {ms:.3f} ms a step "
+          f"on the device clock (CUDA events), "
+          f"{bench.BATCH / (ms * 1e-3):.0f} samples/s; host enqueue "
+          f"{epoch.last_run['enqueue_s'] / replays * 1e3:.4f} ms a step; "
+          f"host syncs between the first and the last replay: "
+          f"0 (set_sync_debug_mode('error')); last loss "
+          f"{float(losses.reshape(-1)[-1]):.6f}", flush=True)
+    replay = torch.cuda.CUDAGraph.replay
+
+    def marked(graph):
+        with torch.profiler.record_function("train_step"):
+            return replay(graph)
+
+    torch.cuda.CUDAGraph.replay = marked
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            ts, _ = epoch_step(1)(ts, stack_batches(
+                batches[:PROFILED_STEPS + 1]))
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+    device_split(args.trace, PROFILED_STEPS)
+    tr.ts = ts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -231,6 +295,9 @@ def main():
     ap.add_argument("--warmup", type=int, default=WARMUP)
     ap.add_argument("--trace", default=os.path.join(
         "build", "train_trace_torch.json"))
+    ap.add_argument("--graph", action="store_true",
+                    help="the step captured in a CUDA graph "
+                         "(train.loop.make_epoch_step)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -248,6 +315,9 @@ def main():
         batches = e2e_batches(tr, n)
     else:
         batches = [tr.next_batch() for _ in range(n)]
+    if args.graph:
+        profile_graph(tr, batches, args)
+        return
     order = iter(range(1 << 30))
 
     def batch():

@@ -25,7 +25,8 @@ It takes ``tools/train_zoo.py``'s flags and prints its JSON line
 Pointing ``--checkpoint`` at an earlier run's directory restores its
 newest checkpoint and trains on to ``--steps``. The step log goes to
 stderr. It runs on the CUDA card and fails without one; ``--cpu`` runs
-on the CPU. ``--micro_batch > 1``, ``--adaptive_emb`` and any model but
+on the CPU. ``--micro_batch N`` splits each step's dense forward and
+backward into N micro-batches. ``--adaptive_emb`` and any model but
 ``wdl`` raise ``NotImplementedError`` before a table is built.
 
 Usage:
@@ -102,9 +103,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"model {args.model!r} is not ported (ROADMAP slice 4, the "
             "model zoo); the port has wdl")
-    if args.micro_batch > 1:
-        raise NotImplementedError(
-            "--micro_batch > 1 is not ported (ROADMAP queue 1 item 4)")
     if args.adaptive_emb:
         raise NotImplementedError(
             "--adaptive_emb is not ported (ROADMAP queue 1 item 13)")
