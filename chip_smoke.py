@@ -162,6 +162,28 @@ non-zero:
    Last, ``tools/train_wdl_torch.py 16 --pool 8`` at full width in this
    process: finite losses, 0 < AUC < 1.
 
+21. (o) ``zoo``: every model of the registry (wdl, deepfm, dlrm and
+   dlrm ``--interaction_op cat``, din, dien, bst, dssm, esmm, mmoe, dbmtl,
+   simple_multitask) through ``tools/train_zoo_torch.main`` in this
+   process at full width (its ``COLUMN_KWARGS``/``MODULE_KWARGS``:
+   DeepFM 16 x 2,097,152 and 1 x 2,097,152; DLRM 16 x 524,288; DIN and
+   DIEN one 18-wide table of 1,048,576 rows holding ``user``,
+   ``item_emb`` and ``cat_emb``), ``--bf16``, B = 4,096, 12 steps and 2
+   eval batches: K1, K2, P1 and P2 launch counts reset just before each
+   run and read just after, each above 0; finite losses, 0 < AUC < 1 for
+   the single-logit models. Then each model in process: the median
+   synchronized step of 5 after 2 (ms, samples/s); one step under
+   ``set_sync_debug_mode("error")``; the eval embeddings of a batch's
+   first ``ZOO_CPU_ROWS`` rows and the dense params through the model on
+   the card and on the CPU (within ``ZOO_CPU_ATOL``). DIN: the tool run
+   to 6 steps with ``--checkpoint`` and resumed to 9, and the in-process
+   state saved and restored key by key. On DIN's and DeepFM's first step
+   (every row fresh), K1, K2, P1 (insert, then the same batch again,
+   every key present; and the eval lookups' find) and P2 against their
+   plain versions, timed beside their bounds and library calls
+   (``_compare_step_kernels``), the records under the ``zoo/din`` and
+   ``zoo/deepfm`` paths.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +279,28 @@ MICRO_LOSS_RTOL = 1e-5
 MICRO_RTOL, MICRO_ATOL = 1e-4, 1e-6
 MICRO_TIMED_STEPS = 5
 TRAIN_WDL_ARGS = ["16", "--pool", "8"]
+# Phase 21 (o): every model of the zoo through tools/train_zoo_torch.py
+# at full width (its COLUMN_KWARGS / MODULE_KWARGS), and DLRM's cat
+# interaction; the in-process run's warm-up and timed steps; the rows of
+# the card-vs-CPU forward; DIN's save and resume steps; the models whose
+# step operands the kernels are held on (DIN's 18-wide sequence table,
+# DeepFM's 16-wide and 1-wide tables).
+ZOO_RUNS = (("wdl",), ("deepfm",), ("dlrm",), ("dlrm", "--interaction_op",
+                                                "cat"), ("din",), ("dien",),
+            ("bst",), ("dssm",), ("esmm",), ("mmoe",), ("dbmtl",),
+            ("simple_multitask",))
+ZOO_BATCH = 4096
+ZOO_ARGS = ["--bf16", "--batch_size", str(ZOO_BATCH), "--steps", "12",
+            "--eval_steps", "2", "--log_steps", "12"]
+ZOO_STEPS = (2, 5)
+ZOO_CPU_ROWS = 256
+# Card vs CPU forward of one model on the same embeddings and weights:
+# bf16 GEMMs (and attention's bf16 softmax, the GRUs' bf16 steps) round
+# differently on the two devices. About 10x the largest reading on an
+# H100 (max abs diff 3.816e-3, dbmtl; 1.835e-4 to 3.547e-3 the others).
+ZOO_CPU_ATOL = 4e-2
+ZOO_RESUME = (6, 9)
+ZOO_KERNEL_MODELS = ("din", "deepfm")
 
 
 def log(msg: str):
@@ -2324,6 +2368,217 @@ def _path_records(path, launches, fetch, applies, gather_err, apply_err,
                 max(applies, key=lambda r: r["bound_ms"]), path)]
 
 
+def _zoo_counts(reset: bool = False) -> dict:
+    """K1, K2, P1 (insert, find) and P2 launch counts; zeroed first with
+    ``reset``."""
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
+    if reset:
+        gather.launches = 0
+        sa.launches["adagrad_apply_rows"] = 0
+        hash_probe.launches["find_or_insert"] = 0
+        hash_probe.launches["find"] = 0
+        init_rows.launches = 0
+    return {"gather_rows": gather.launches,
+            "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
+            "hash_probe_insert": hash_probe.launches["find_or_insert"],
+            "hash_probe_find": hash_probe.launches["find"],
+            "init_fresh_rows": init_rows.launches}
+
+
+def _flat_outputs(out) -> list:
+    """A model's output (logits, a task dict, DSSM's towers, DIEN's
+    (logit, aux)) as a list of float32 tensors."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat_outputs(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat_outputs(o)]
+    return [out.detach().to(torch.float32)]
+
+
+def _zoo_card_vs_cpu(tz, args, est, batch, rows: int) -> float:
+    """The eval embeddings of ``batch``'s first ``rows`` rows from the
+    card state, and the dense params, through the model on the card and
+    through the same model built on the CPU; returns the largest
+    absolute difference of the outputs."""
+    from deeprec_tpu_torch.models.registry import ZOO
+    from deeprec_tpu_torch.train import loop
+
+    def cut(x):
+        return tuple(cut(t) for t in x) if isinstance(x, tuple) else x[:rows]
+
+    def cpu(x):
+        return tuple(cpu(t) for t in x) if isinstance(x, tuple) else x.cpu()
+
+    embs = {k: cut(v) for k, v in
+            loop.eval_embeddings(est.group, est.ts, batch).items()}
+    small = {k: v[:rows] for k, v in batch.items()
+             if isinstance(v, torch.Tensor)}
+    module = tz.make_module(args, est.group, "cpu")
+    cpu_apply = ZOO[args.model].make_apply(module, est.group)
+    with torch.no_grad():
+        card = _flat_outputs(est.apply_fn(est.ts.params, embs, small))
+        ref = _flat_outputs(cpu_apply(
+            {k: v.cpu() for k, v in est.ts.params.items()},
+            {k: cpu(v) for k, v in embs.items()},
+            {k: v.cpu() for k, v in small.items()}))
+    err = 0.0
+    for a, b in zip(card, ref):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{args.model}: card output {a.shape} vs CPU "
+                                 f"{b.shape}, finite {torch.isfinite(a).all()}")
+        err = max(err, float((a.cpu() - b).abs().max()))
+    return err
+
+
+def _zoo_resume(tz, args, est, argv, tmp: str, cpu_flag) -> str:
+    """DIN across a save and a restore: the tool trained to
+    ``ZOO_RESUME[0]`` steps then resumed to ``ZOO_RESUME[1]``; the
+    in-process state saved by its manager and restored into a fresh
+    estimator, key by key (the coalesced table holds the bag and the
+    sequence columns of ``item_emb`` and ``cat_emb``)."""
+    d = os.path.join(tmp, "din_tool")
+    first, then = ZOO_RESUME
+    runs = [tz.main(argv + ["--checkpoint", d, "--steps", str(n)] + cpu_flag)
+            for n in (first, then)]
+    if runs[1].get("resumed_from") != first or runs[1]["steps"] != then:
+        raise AssertionError(f"din did not resume at {first}: {runs[1]}")
+    t = time.perf_counter()
+    est.manager.save(est.ts)
+    save_s = time.perf_counter() - t
+    est2, _, _, _ = tz.build(args, est.device)
+    got = est2.restore_if_available()
+    if got != est.ts.step:
+        raise AssertionError(f"restored step {got}, not {est.ts.step}")
+    live, back = _live_rows(est.group, est.ts.ev), _live_rows(est.group,
+                                                             est2.ts.ev)
+    for tname, want in live.items():
+        for k, v in want.items():
+            if not np.array_equal(back[tname][k], v):
+                raise AssertionError(f"din restore {tname}: {k} differs")
+    for k, v in est.ts.params.items():
+        if not torch.equal(est2.ts.params[k], v):
+            raise AssertionError(f"din restore: param {k} differs")
+    n_keys = sum(len(v["keys"]) for v in live.values())
+    del est2
+    return (f"tool: {first} steps (loss {runs[0]['final_loss']}), resumed "
+            f"from {runs[1]['resumed_from']} to {then} (loss "
+            f"{runs[1]['final_loss']}); in process: step {est.ts.step} saved "
+            f"in {save_s:.3f} s and restored into a fresh estimator, {n_keys} "
+            f"keys of {', '.join(est.group.tables)} equal key by key (rows, "
+            f"freqs, versions) and every dense param equal")
+
+
+def phase_zoo(tmp: str, gather_err: float, apply_err: float, device="cuda"):
+    """(o) the model zoo; see the module's docstring. Returns the kernels'
+    records of the ``zoo/din`` and ``zoo/deepfm`` paths."""
+    import types
+
+    from deeprec_tpu_torch.train import loop as trainlib
+
+    tz = _train_zoo()
+    label = "21 (o)"
+    dev = torch.device(device)
+    cpu_flag = ["--cpu"] if dev.type == "cpu" else []
+    records, summary = [], {}
+    t_phase = time.perf_counter()
+    for run in ZOO_RUNS:
+        name, extra = run[0], list(run[1:])
+        tag = name + ("_cat" if extra else "")
+        argv = [name] + ZOO_ARGS + extra
+        _zoo_counts(reset=True)                   # the main path starts here
+        t0 = time.perf_counter()
+        out = tz.main(argv + cpu_flag)
+        launches = _zoo_counts()                  # the main path ends here
+        tool_s = time.perf_counter() - t0
+        _release()
+        need = ("gather_rows", "adagrad_apply_rows", "hash_probe_insert",
+                "init_fresh_rows")
+        if min(launches[k] for k in need) < 1:
+            raise AssertionError(f"phase {label} {tag}: a kernel of the path "
+                                 f"did not launch: {launches}")
+        if not np.isfinite(out["final_loss"]) or (
+                "auc" in out and not 0.0 < out["auc"] < 1.0):
+            raise AssertionError(f"phase {label} {tag}: {out}")
+
+        # The same model in process: steps timed one by one, one step
+        # with host syncs made errors, the forward against the CPU.
+        args = tz.parse_args(argv + cpu_flag + (
+            ["--checkpoint", os.path.join(tmp, "din_est")]
+            if name == "din" else []))
+        est, make_data, pack, _ = tz.build(args, dev)
+        data = make_data(args.seed)
+        warm, timed = ZOO_STEPS
+        batches = [pack(data) for _ in range(warm + timed + 1)]
+        kernels_here = name in ZOO_KERNEL_MODELS and not extra
+        start = trainlib.clone_state(est.ts) if kernels_here else None
+        ms, losses = [], []
+        for b in batches[:warm + timed]:
+            _sync(dev)
+            t0 = time.perf_counter()
+            est.ts, m = est._step_fn(est.ts, b)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(losses)):
+            raise FloatingPointError(f"phase {label} {tag}: losses {losses}")
+        step_ms = float(np.median(ms[warm:]))
+        _sync(dev)
+        with trainlib._no_host_sync():
+            est.ts, m = est._step_fn(est.ts, batches[-1])
+        _sync(dev)
+        cpu_err = _zoo_card_vs_cpu(tz, args, est, batches[-1], ZOO_CPU_ROWS)
+        if not cpu_err <= ZOO_CPU_ATOL:
+            raise AssertionError(f"phase {label} {tag}: card vs CPU forward "
+                                 f"max abs diff {cpu_err} > {ZOO_CPU_ATOL}")
+        tables = ", ".join(f"{cfg.dim} x {cfg.capacity}"
+                           for cfg in est.group.tables.values())
+        summary[tag] = {"step_ms": round(step_ms, 3),
+                        "samples_per_s": round(ZOO_BATCH / step_ms * 1e3, 1),
+                        "loss": out["final_loss"], "auc": out.get("auc"),
+                        "cpu_err": cpu_err}
+        log(f"phase {label}: {tag} (tables {tables}): tools/train_zoo_torch.py "
+            f"{' '.join(argv[1:])}: loss {out['final_loss']}"
+            + (f", auc {out['auc']}" if "auc" in out else "")
+            + f" in {tool_s:.3f} s; launches {launches}; in process median "
+            f"synchronized step {step_ms:.3f} ms ({ZOO_BATCH / step_ms * 1e3:.1f}"
+            f" samples/s) over {timed} steps after {warm} (losses "
+            f"{[round(x, 5) for x in losses]}); one step under "
+            f"set_sync_debug_mode('error'): no host sync; card vs CPU forward "
+            f"on {ZOO_CPU_ROWS} rows: max abs diff {cpu_err:.3e}")
+        if name == "din":
+            log(f"phase {label}: din save and resume: "
+                + _zoo_resume(tz, args, est, [name] + ZOO_ARGS, tmp,
+                              cpu_flag))
+        if kernels_here:
+            # The operands of the run's first step: every row it touches
+            # is fresh (P2 draws them all, P1 inserts every distinct id).
+            tr = types.SimpleNamespace(
+                ts=start, group=est.group, apply_fn=est.apply_fn,
+                loss_fn=est.loss_fn, sparse_opt=est.sparse_opt)
+            path = f"zoo/{name}"
+            fetch, applies, probes, draws = _compare_step_kernels(
+                tr, "adagrad", f"{label} {name} first step", batches[0])
+            del tr, start
+            with captured_probes() as evals:
+                est.predict(pack(make_data(args.seed + 10_001)))
+            finds = compare_probes(f"{label} {name} eval", evals)
+            records += (_path_records(path, launches, fetch, applies,
+                                      gather_err, apply_err, probes=probes,
+                                      draws=draws)
+                        + [_probe_record(path, launches, finds, kind="find")])
+        del est, batches
+        _release()
+    log(f"phase {label}: {len(ZOO_RUNS)} runs in "
+        f"{time.perf_counter() - t_phase:.3f} s; summary {json.dumps(summary)}")
+    return records
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def _release():
     """Return the memory of dropped trainers to the card."""
     gc.collect()
@@ -2374,6 +2629,9 @@ def main():
         v_launches, v1, v2, vp, vi, vf = phase_ev_cbf(d)
     _release()
     epoch_records = phase_epoch(gather_err, apply_err)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
+        zoo_records = phase_zoo(d, gather_err, apply_err)
+    _release()
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -2390,7 +2648,7 @@ def main():
         + _path_records("ev_cbf", v_launches, v1, v2, gather_err, apply_err,
                         probes=vp, draws=vi)
         + [_probe_record("ev_cbf", v_launches, vf, kind="find")]
-        + epoch_records)
+        + epoch_records + zoo_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

@@ -20,4 +20,9 @@ the same kernel); and the input pipeline (the Kaggle TSV parser in
 ``native/host_ops.cc``, the compact wire format, ``data/prefetch.py``).
 ``bench.py`` times the four rows of the JAX package's ``bench.py``:
 headline, static, dim16 and e2e.
+
+The model zoo (``models/registry.py``: WDL, DeepFM, DLRM, DIN, DIEN, BST,
+DSSM, ESMM, MMoE, DBMTL, SimpleMultiTask) trains through the same step,
+sequence columns included; ``tools/train_zoo_torch.py`` drives any of
+them.
 """

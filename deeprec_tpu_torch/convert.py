@@ -1,9 +1,12 @@
 """Carry weights and table state across from the JAX package.
 
-Dense params: a flax params tree (nested dicts of numpy arrays) maps to
-the port's state dict; a Dense ``kernel [in, out]`` becomes
-``weight [out, in]``, and any other leaf (a bias, a bare parameter such
-as ``w``) keeps its name and layout. Table state: every ``EVState``
+Dense params of any zoo model: a flax params tree (nested dicts of
+numpy arrays) maps to the port's state dict; a ``Dense`` kernel (2-D,
+``[in, out]``) becomes ``weight [out, in]``, and every other leaf keeps
+its name and layout: a ``DenseGeneral`` kernel (3-D: attention's
+``query``/``key``/``value`` ``[D, H, Dh]``, ``out`` ``[H, Dh, D]``),
+biases, LayerNorm's ``scale``, the GRUs' bare matrices (used as
+``x @ w`` on both sides) and ``pos_emb``. Table state: every ``EVState``
 field is copied as it is, so the port probes the same slots and reads
 the same rows.
 Optimizer state: the sparse optimizers' slot trees are the same dicts
@@ -30,16 +33,17 @@ EV_FIELDS = ("key_rows", "values", "freqs", "versions", "default_bank",
              "bloom")
 
 
-def wdl_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
-    """Flax params tree -> state dict (``deep/dense_0/kernel`` ->
-    ``deep.dense_0.weight``, transposed; other leaves as they are)."""
+def params_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """Flax params tree of any zoo model -> state dict
+    (``deep/dense_0/kernel`` -> ``deep.dense_0.weight``, transposed; a
+    3-D ``kernel`` and every other leaf as they are)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix, node):
         for k, v in node.items():
             if hasattr(v, "items"):
                 walk(prefix + [k], v)
-            elif k == "kernel":
+            elif k == "kernel" and np.ndim(v) == 2:
                 out[".".join(prefix + ["weight"])] = torch.from_numpy(
                     np.array(np.asarray(v).T, order="C"))
             else:
@@ -49,8 +53,8 @@ def wdl_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def wdl_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`wdl_params_from_numpy`."""
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_numpy`."""
     tree: Dict[str, Any] = {}
     for name, t in params.items():
         *path, leaf = name.split(".")
@@ -63,6 +67,11 @@ def wdl_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             node[leaf] = arr
     return tree
+
+
+# The names of the WDL-only port, kept for their callers.
+wdl_params_from_numpy = params_from_numpy
+wdl_params_to_numpy = params_to_numpy
 
 
 def ev_state_from_numpy(d: Dict[str, np.ndarray], device) -> EVState:
@@ -106,10 +115,10 @@ def dense_opt_from_numpy(opt_state) -> Dict[str, Any]:
     ``Adagrad`` or ``Adam`` state."""
     st = opt_state[0]
     if hasattr(st, "sum_of_squares"):
-        return {"sum_of_squares": wdl_params_from_numpy(st.sum_of_squares)}
+        return {"sum_of_squares": params_from_numpy(st.sum_of_squares)}
     return {"count": torch.from_numpy(np.array(st.count, np.int32)),
-            "mu": wdl_params_from_numpy(st.mu),
-            "nu": wdl_params_from_numpy(st.nu)}
+            "mu": params_from_numpy(st.mu),
+            "nu": params_from_numpy(st.nu)}
 
 
 def dense_opt_to_numpy(dense_opt) -> Dict[str, Any]:
@@ -119,7 +128,7 @@ def dense_opt_to_numpy(dense_opt) -> Dict[str, Any]:
     its ``Adam`` state -> ``{"count", "mu", "nu"}`` (trees for the
     moments), for ``(optax.ScaleByAdamState(**d), optax.EmptyState())``."""
     if "sum_of_squares" in dense_opt:
-        return wdl_params_to_numpy(dense_opt["sum_of_squares"])
+        return params_to_numpy(dense_opt["sum_of_squares"])
     return {"count": dense_opt["count"].cpu().numpy(),
-            "mu": wdl_params_to_numpy(dense_opt["mu"]),
-            "nu": wdl_params_to_numpy(dense_opt["nu"])}
+            "mu": params_to_numpy(dense_opt["mu"]),
+            "nu": params_to_numpy(dense_opt["nu"])}

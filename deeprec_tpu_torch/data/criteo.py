@@ -1,8 +1,9 @@
 """Synthetic Criteo stream, Kaggle TSV parsing and batch helpers.
 
-Port of ``deeprec_tpu/data/criteo.py`` for the generator
-(``SyntheticCriteo``: the same seed draws the same ids, numerics and
-labels as the JAX package) and the file reader (``parse_criteo_lines``,
+Port of ``deeprec_tpu/data/criteo.py`` for the generators
+(``SyntheticCriteo`` and the multi-task ``SyntheticMultiTask``: the same
+seed draws the same ids, numerics and labels as the JAX package) and
+the file reader (``parse_criteo_lines``,
 ``criteo_file_batches``: the same file gives the same batches).
 """
 
@@ -255,3 +256,37 @@ class SyntheticCriteo:
     def __iter__(self) -> Iterator[Dict]:
         while True:
             yield self.next_batch()
+
+
+class SyntheticMultiTask(SyntheticCriteo):
+    """Criteo-style features with ``click`` and ``conversion`` labels (no
+    ``label``) for the multi-task zoo; a conversion happens only on a
+    clicked impression (ESMM's entire-space assumption)."""
+
+    def next_batch_np(self, wide: bool = False) -> Dict:
+        """The next batch as raw numpy (``batch_np_dict`` layout, with
+        ``click`` and ``conversion`` for ``label``)."""
+        B = self.batch_size
+        ints, cats = self._draw(B)
+        logit = self.logits(ints, cats)
+        click = (self.rng.random(B) <
+                 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+        # Conversion has its own, correlated structure: dense linear
+        # plus a categorical term on rotated fields.
+        b = cats % self._nb
+        rot = self._w_cat[(np.arange(NUM_CAT) + 3) % NUM_CAT]  # [C, nb]
+        conv_logit = (ints[:, 0] + ints[:, 1]
+                      + np.take_along_axis(rot.T, b, axis=0).sum(1)
+                      / np.sqrt(NUM_CAT))
+        conv_p = 1.0 / (1.0 + np.exp(-conv_logit))
+        conversion = ((self.rng.random(B) < conv_p) & (click > 0.5)
+                      ).astype(np.float32)
+        cats = cats + np.arange(NUM_CAT, dtype=np.int64)[None, :] * (1 << 40)
+        batch = batch_np_dict(click, ints, cats, wide=wide)
+        batch.pop("label")
+        batch["click"] = click
+        batch["conversion"] = conversion
+        return batch
+
+    def next_batch(self, device="cuda") -> Dict:
+        return _with_sparse_ids(self.next_batch_np(), device)

@@ -17,8 +17,9 @@ Batch convention:
   * sparse column ``name``  -> ``SparseIds(hi [B, L], lo [B, L])``,
     padded with the EMPTY sentinel id.
 
-Not ported yet: sharded placement, adaptive, sequence, weighted and
-dyn-dim hot columns.
+Sequence columns (``SequenceEmbeddingColumn``) combine to their
+per-position rows and mask. Not ported yet: sharded placement,
+adaptive, weighted and dyn-dim hot columns.
 """
 
 from __future__ import annotations
@@ -145,6 +146,13 @@ class EmbeddingColumn:
             initializer=self.initializer, init_scale=scale,
             ev_option=self.ev_option, combiner=self.combiner,
             max_probes=self.max_probes)
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceEmbeddingColumn(EmbeddingColumn):
+    """Behavior-sequence column: :meth:`EmbeddingGroup.combine` returns
+    its per-position rows ``[B, L, dim]`` and mask ``[B, L]`` instead of
+    a combined bag (the DIN, DIEN, BST and DSSM input)."""
 
 
 class ColumnLookup(NamedTuple):
@@ -483,16 +491,20 @@ class EmbeddingGroup:
             yield tname, items, r[inv] * msk[..., None].to(r.dtype), msk
 
     def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
-        """``rows[table]`` -> per-column bag embeddings [B, dim],
-        differentiable in ``rows``."""
+        """``rows[table]`` -> per-column embeddings, differentiable in
+        ``rows``: a bag column's [B, dim], a sequence column's
+        ``([B, L, dim] rows, zero at padding; mask [B, L])``."""
         out = {}
         for _, items, occ, msk in self._occurrences(gl, rows):
             off = 0
             for cname, cl in items:
                 w = cl.inverse.shape[1]
-                out[cname] = lkup.combine_from_occ(
-                    occ[:, off:off + w], msk[:, off:off + w],
-                    cl.column.combiner)
+                seg = occ[:, off:off + w]
+                if isinstance(cl.column, SequenceEmbeddingColumn):
+                    out[cname] = (seg, cl.mask)
+                else:
+                    out[cname] = lkup.combine_from_occ(
+                        seg, msk[:, off:off + w], cl.column.combiner)
                 off += w
         return out
 
@@ -502,11 +514,13 @@ class EmbeddingGroup:
         physical table, without the per-column split, for models that
         take whole-table matrices (``wdl.apply_fn_fused``). Every member
         column must be a width-1 bag column (single-valued fields, where
-        the combiner does not matter); raises ``ValueError`` otherwise.
+        the combiner does not matter); raises ``ValueError`` otherwise,
+        a sequence column included, whatever its width.
         Returns ``{table: ([B, n_cols, dim] rows, [column names])}``,
         differentiable in ``rows`` as :meth:`combine` is."""
         for cname, cl in gl.columns.items():
-            if cl.inverse.shape[1] != 1:
+            if (isinstance(cl.column, SequenceEmbeddingColumn)
+                    or cl.inverse.shape[1] != 1):
                 raise ValueError(
                     f"combine_tables: column {cname!r} is not a width-1 "
                     "unweighted bag column; use combine()")

@@ -3,7 +3,7 @@
 Wide part: per-field dim-1 weights summed into a linear logit; deep
 part: MLP over [deep embeddings, numeric] with the reference tower
 sizes 1024/512/256. Parameter names follow the flax module's
-(``deep.dense_i``, ``head.logits``), so ``convert.wdl_params_from_numpy``
+(``deep.dense_i``, ``head.logits``), so ``convert.params_from_numpy``
 carries its weights across.
 """
 

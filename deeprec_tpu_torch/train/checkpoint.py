@@ -40,8 +40,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from deeprec_tpu_torch.convert import (wdl_params_from_numpy,
-                                       wdl_params_to_numpy)
+from deeprec_tpu_torch.convert import params_from_numpy, params_to_numpy
 from deeprec_tpu_torch.embedding import hash_table as ht
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.feature_column.feature_column import EmbeddingGroup
@@ -86,11 +85,11 @@ def _subtree(flat: Dict[str, np.ndarray], prefix: str):
 def _dense_leaves(ts: TrainState) -> Dict[str, np.ndarray]:
     """The params and the dense optimizer's fields (a state dict of
     per-parameter tensors, or one tensor such as Adam's ``count``)."""
-    flat = _flatten_params(wdl_params_to_numpy(ts.params), _PARAMS)
+    flat = _flatten_params(params_to_numpy(ts.params), _PARAMS)
     for name, v in ts.dense_opt.items():
         key = f"{_DENSE_OPT}/.{name}"
         if isinstance(v, dict):
-            flat.update(_flatten_params(wdl_params_to_numpy(v), key))
+            flat.update(_flatten_params(params_to_numpy(v), key))
         else:
             flat[key] = v.cpu().numpy()
     return flat
@@ -99,7 +98,7 @@ def _dense_leaves(ts: TrainState) -> Dict[str, np.ndarray]:
 def _dense_tree(flat, prefix, like: Dict[str, torch.Tensor], name: str):
     """State dict of the leaves under ``prefix``, on the devices and in
     the types of ``like``."""
-    loaded = wdl_params_from_numpy(_subtree(flat, prefix))
+    loaded = params_from_numpy(_subtree(flat, prefix))
     if set(loaded) != set(like):
         raise KeyError(f"{name}: dense leaves {sorted(loaded)} under "
                        f"{prefix} do not match the model's {sorted(like)}")

@@ -149,6 +149,8 @@ class Estimator:
         self.group = group
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
+        self.sparse_opt = sparse_opt
+        self.dense_opt = dense_opt
         self.device = torch.device(device)
         self.ts = trainlib.create_train_state(group, params, dense_opt,
                                               sparse_opt, self.device)

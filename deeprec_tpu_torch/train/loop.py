@@ -23,7 +23,8 @@ import torch
 
 from deeprec_tpu_torch.embedding import lookup as lkup
 from deeprec_tpu_torch.embedding import variable as ev
-from deeprec_tpu_torch.feature_column.feature_column import EmbeddingGroup
+from deeprec_tpu_torch.feature_column.feature_column import (
+    EmbeddingGroup, SequenceEmbeddingColumn)
 from deeprec_tpu_torch.utils import keys as keylib
 
 
@@ -321,28 +322,39 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
                      n_epochs)
 
 
+@torch.no_grad()
+def eval_embeddings(group: EmbeddingGroup, ts: TrainState, batch):
+    """The embedding dict the eval step hands the model: every id
+    occurrence looked up on its own (identity ``inverse``), bags
+    combined, sequence columns as ``(rows, mask)``; no mutation."""
+    embs = {}
+    for tname, tcols in group._columns_by_table().items():
+        cfg = group.tables[tname]
+        ids_hi, ids_lo, widths = group._packed_view(batch, tname, tcols)
+        mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
+        B, L = ids_hi.shape
+        rows = ev.lookup(cfg, ts.ev[tname], ids_hi.reshape(-1),
+                         ids_lo.reshape(-1))
+        inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
+        off = 0
+        for c, w in zip(tcols, widths):
+            inv_c, m_c = inverse[:, off:off + w], mask[:, off:off + w]
+            if isinstance(c, SequenceEmbeddingColumn):
+                embs[c.name] = (rows[inv_c] * m_c[..., None].to(rows.dtype),
+                                m_c)
+            else:
+                embs[c.name] = lkup.combine_bags(rows, inv_c, m_c,
+                                                 c.combiner)
+            off += w
+    return embs
+
+
 def make_eval_step(group: EmbeddingGroup, apply_fn: Callable):
-    """``(TrainState, batch) -> model outputs``, no mutation. Every id
-    occurrence is looked up on its own (identity ``inverse``), as the
-    JAX package's unsharded eval does."""
+    """``(TrainState, batch) -> model outputs``, no mutation, over
+    :func:`eval_embeddings`, as the JAX package's unsharded eval."""
 
     @torch.no_grad()
     def _eval(ts: TrainState, batch):
-        embs = {}
-        for tname, tcols in group._columns_by_table().items():
-            cfg = group.tables[tname]
-            ids_hi, ids_lo, widths = group._packed_view(batch, tname, tcols)
-            mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
-            B, L = ids_hi.shape
-            rows = ev.lookup(cfg, ts.ev[tname], ids_hi.reshape(-1),
-                             ids_lo.reshape(-1))
-            inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
-            off = 0
-            for c, w in zip(tcols, widths):
-                embs[c.name] = lkup.combine_bags(
-                    rows, inverse[:, off:off + w], mask[:, off:off + w],
-                    c.combiner)
-                off += w
-        return apply_fn(ts.params, embs, batch)
+        return apply_fn(ts.params, eval_embeddings(group, ts, batch), batch)
 
     return _eval

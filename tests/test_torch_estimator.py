@@ -390,7 +390,7 @@ def _tool(name):
 
 @pytest.mark.parametrize("argv, what", [
     (["wdl", "--adaptive_emb"], "queue 1 item 13"),
-    (["deepfm"], "slice 4"),
+    (["deepfm", "--adaptive_emb"], "queue 1 item 13"),
 ])
 def test_train_zoo_refuses_unported_before_any_table(argv, what,
                                                      monkeypatch):

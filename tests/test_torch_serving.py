@@ -259,12 +259,22 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.embedding.lookup, "
         "deeprec_tpu_torch.embedding.variable, "
         "deeprec_tpu_torch.train.estimator, deeprec_tpu_torch.train.metrics, "
-        "deeprec_tpu_torch.data.work_queue, deeprec_tpu_torch.ops.fused\n"
+        "deeprec_tpu_torch.data.work_queue, deeprec_tpu_torch.ops.fused, "
+        "deeprec_tpu_torch.layers.core, deeprec_tpu_torch.models.deepfm, "
+        "deeprec_tpu_torch.models.dlrm, deeprec_tpu_torch.models.multitask, "
+        "deeprec_tpu_torch.models.din, deeprec_tpu_torch.models.dien, "
+        "deeprec_tpu_torch.models.bst, deeprec_tpu_torch.models.dssm, "
+        "deeprec_tpu_torch.models.structured, "
+        "deeprec_tpu_torch.models.registry, "
+        "deeprec_tpu_torch.data.behavior, deeprec_tpu_torch.train.losses\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_zoo_torch, train_wdl_torch, profile_train_torch\n"
         "train_zoo_torch.columns(train_zoo_torch.parse_args(\n"
         "    ['wdl', '--ev', '--cbf', '--filter_freq', '2']))\n"
+        "for m in train_zoo_torch.COLUMN_KWARGS:\n"
+        "    train_zoo_torch.check_ported(train_zoo_torch.parse_args([m]))\n"
+        "    train_zoo_torch.columns(train_zoo_torch.parse_args([m]))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'deeprec_tpu')]\n"
         "assert 'jax' not in sys.modules and not bad, bad\n")

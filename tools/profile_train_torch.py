@@ -7,6 +7,7 @@ Run from the repository root on one CUDA card:
     python3 tools/profile_train_torch.py [--steps 20] [--opt adagrad]
         [--row headline|static|dim16|e2e] [--fresh] [--warmup 10]
         [--trace build/train_trace_torch.json] [--graph]
+    python3 tools/profile_train_torch.py --zoo din [--steps 20] ...
 
 It builds a WDL row of ``deeprec_tpu_torch.bench`` (by default the
 headline: reference shapes, B = 16,384, ``SparseAdagrad`` or
@@ -17,8 +18,11 @@ written into a new directory under ``$TMPDIR``, parsed natively with
 31-bit ids and packed compact as ``bench.e2e_batches`` does, then staged
 on the card before the first step). The steps cycle over 8 pre-packed
 batches, as the rows of ``bench`` do; with ``--fresh`` every step takes
-a batch no step has seen, as the e2e row's steps do. After
-``--warmup`` steps it:
+a batch no step has seen, as the e2e row's steps do. ``--zoo MODEL``
+takes a model of ``tools/train_zoo_torch.py`` instead (its full-width
+columns and towers, bf16, B = 4,096, its sparse Adagrad and dense
+Adam, the batches of its synthetic stream; the step is the Estimator's).
+After ``--warmup`` steps it:
 
 1. times ``--steps`` steps with the host clock, fenced by
    ``torch.cuda.synchronize()``: median step time and samples/s, and
@@ -107,6 +111,7 @@ def stage_spans(opt_name: str):
                (feature_column.EmbeddingGroup, "combine", "combine"),
                (torch.autograd, "grad", "backward"),
                (dense.Adagrad, "apply", "dense_adagrad"),
+               (dense.Adam, "apply", "dense_adam"),
                (sparse_apply, f"{opt_name}_apply_rows", "sparse_apply")]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in targets]
     for obj, attr, name in targets:
@@ -235,10 +240,9 @@ def e2e_batches(tr, n: int) -> list:
         return [batch_to(b, tr.device) for b in bench.e2e_batches(tr, path)]
 
 
-def profile_graph(tr, batches, args) -> None:
+def profile_graph(tr, batches, args, batch_size: int) -> None:
     """``--graph``: the captured epoch step over ``batches`` as its
     pool, timed, then profiled over 5 replays."""
-    from deeprec_tpu_torch import bench
     from deeprec_tpu_torch.train.loop import make_epoch_step, stack_batches
 
     def epoch_step(n_epochs):
@@ -258,7 +262,7 @@ def profile_graph(tr, batches, args) -> None:
     print(f"graph: {E * K} steps in one call, {wall:.3f} s (step 0 eager, "
           f"the capture, {replays} replays); replays {ms:.3f} ms a step "
           f"on the device clock (CUDA events), "
-          f"{bench.BATCH / (ms * 1e-3):.0f} samples/s; host enqueue "
+          f"{batch_size / (ms * 1e-3):.0f} samples/s; host enqueue "
           f"{epoch.last_run['enqueue_s'] / replays * 1e3:.4f} ms a step; "
           f"host syncs between the first and the last replay: "
           f"0 (set_sync_debug_mode('error')); last loss "
@@ -285,6 +289,24 @@ def profile_graph(tr, batches, args) -> None:
     tr.ts = ts
 
 
+ZOO_BATCH = 4096
+
+
+def zoo_trainer(name: str):
+    """A zoo model of ``tools/train_zoo_torch.py`` on the card, with the
+    fields of a ``bench`` trainer that this tool reads."""
+    import types
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_zoo_torch as tz
+    args = tz.parse_args([name, "--bf16", "--batch_size", str(ZOO_BATCH)])
+    est, make_data, pack, _ = tz.build(args, torch.device("cuda"))
+    data = make_data(args.seed)
+    return types.SimpleNamespace(
+        ts=est.ts, group=est.group, step=est._step_fn, apply_fn=est.apply_fn,
+        loss_fn=est.loss_fn, sparse_opt=est.sparse_opt,
+        dense_opt=est.dense_opt, next_batch=lambda: pack(data))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -298,6 +320,9 @@ def main():
     ap.add_argument("--graph", action="store_true",
                     help="the step captured in a CUDA graph "
                          "(train.loop.make_epoch_step)")
+    ap.add_argument("--zoo", default=None,
+                    help="a model of tools/train_zoo_torch.py instead of "
+                         "a bench row")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke
@@ -305,8 +330,13 @@ def main():
     from deeprec_tpu_torch.embedding import variable as ev
 
     chip_smoke.phase_device()
-    tr = bench.build_wdl(device="cuda", sparse_opt=args.opt,
-                         **ROW_KW[args.row])
+    if args.zoo:
+        tr, batch_size = zoo_trainer(args.zoo), ZOO_BATCH
+        args.opt = "adagrad"
+    else:
+        tr = bench.build_wdl(device="cuda", sparse_opt=args.opt,
+                             **ROW_KW[args.row])
+        batch_size = bench.BATCH
     # warm-up, timed steps, the sync count, the spanned step's warm-up
     # and the profiled steps each take their batches in turn.
     n = (args.warmup + args.steps + 1 + SPAN_WARMUP + PROFILED_STEPS
@@ -316,7 +346,7 @@ def main():
     else:
         batches = [tr.next_batch() for _ in range(n)]
     if args.graph:
-        profile_graph(tr, batches, args)
+        profile_graph(tr, batches, args, batch_size)
         return
     order = iter(range(1 << 30))
 
@@ -337,7 +367,7 @@ def main():
     med = statistics.median(times)
     print(f"step: median {med:.3f} ms, min {min(times):.3f}, max "
           f"{max(times):.3f} over {args.steps} synchronized steps; "
-          f"{bench.BATCH / (med * 1e-3):.0f} samples/s; loss "
+          f"{batch_size / (med * 1e-3):.0f} samples/s; loss "
           f"{float(m['loss']):.6f}", flush=True)
     print(f"step ms {[round(t, 3) for t in times]}; n_overflow {overflow}",
           flush=True)
@@ -346,7 +376,7 @@ def main():
     print(f"host syncs in one step: {sum(syncs.values())}", flush=True)
     for where, n in syncs.most_common():
         print(f"host syncs: {n} at {where}", flush=True)
-    if not args.fresh:
+    if not args.fresh and not args.zoo:
         tr.ts = ts
         probe_report(tr, batches)
 

@@ -1,17 +1,25 @@
 """Model-zoo training CLI of the PyTorch port: the counterpart of
-``tools/train_zoo.py`` (the reference's ``modelzoo/<M>/train.py`` role)
-for ``wdl``, the one zoo model the port has.
+``tools/train_zoo.py`` (the reference's ``modelzoo/<M>/train.py`` role),
+one tool for every model of ``deeprec_tpu_torch/models/registry.py``:
+wdl, deepfm, dlrm, din, dien, bst, dssm, esmm, mmoe, dbmtl and
+simple_multitask, at the reference widths of ``COLUMN_KWARGS`` and
+``MODULE_KWARGS``. Criteo models read the synthetic Criteo stream (the
+multi-task ones its click/conversion variant), sequence models the
+synthetic behavior stream (20,000 items, 1,000 categories, sequences
+of 50).
 
 It takes ``tools/train_zoo.py``'s flags and prints its JSON line
 (``model``, ``steps``, ``batch_size``, ``backend``: the card's name or
 ``cpu``, ``final_loss``, ``train_s``, ``resumed_from`` after a resume,
-``auc`` and ``accuracy`` after ``--eval_steps`` held-out batches):
+and for single-logit models ``auc`` and ``accuracy`` after
+``--eval_steps`` held-out batches):
 
   --ev / --filter_freq / --cbf / --steps_to_live / --l2_evict
         EmbeddingVariable options on every embedding column (CBF
         admission, eviction at checkpoint time)
   --static_bucket                static hash-bucket columns instead
   --no_emb_fusion                no table coalescing
+  --interaction_op dot|cat       dlrm's interaction
   --smartstaged                  batches packed on a prefetch thread
   --bf16                         bf16 towers, fp32 params
   --checkpoint DIR --save_steps  CheckpointHook full saves (+ shrink)
@@ -26,14 +34,16 @@ Pointing ``--checkpoint`` at an earlier run's directory restores its
 newest checkpoint and trains on to ``--steps``. The step log goes to
 stderr. It runs on the CUDA card and fails without one; ``--cpu`` runs
 on the CPU. ``--micro_batch N`` splits each step's dense forward and
-backward into N micro-batches. ``--adaptive_emb`` and any model but
-``wdl`` raise ``NotImplementedError`` before a table is built.
+backward into N micro-batches. ``--adaptive_emb`` raises
+``NotImplementedError`` before a table is built.
 
 Usage:
   python3 tools/train_zoo_torch.py wdl --steps 200 --batch_size 2048 \\
       --bf16 --ev --cbf --filter_freq 2 --steps_to_live 2000 \\
       --checkpoint /tmp/wdl_run --save_steps 100 --incremental_ckpt 25
-  python3 tools/train_zoo_torch.py wdl --steps 20 --batch_size 256 --cpu
+  python3 tools/train_zoo_torch.py dien --steps 12 --batch_size 4096 --bf16
+  python3 tools/train_zoo_torch.py dlrm --interaction_op cat --steps 20 \\
+      --batch_size 256 --cpu
 """
 
 from __future__ import annotations
@@ -47,15 +57,49 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# The wdl entries of tools/zoo_auc.py (which imports JAX): reference
-# Criteo shapes with a per-column capacity ceiling, reference towers.
-COLUMN_KWARGS = {"wdl": dict(reference_shapes=True, capacity=1 << 18)}
-MODULE_KWARGS = {"wdl": dict(hidden=(1024, 512, 256))}
+# tools/zoo_auc.py's settings (it imports JAX): reference Criteo shapes
+# with a per-column capacity ceiling, the reference embedding widths
+# (DLRM/DeepFM 16, DIN/DIEN 18, BST/DSSM 16) and towers.
+COLUMN_KWARGS = {
+    "wdl": dict(reference_shapes=True, capacity=1 << 18),
+    "deepfm": dict(embedding_dim=16, reference_shapes=True,
+                   capacity=1 << 18),
+    "dlrm": dict(embedding_dim=16, reference_shapes=True,
+                 capacity=1 << 18),
+    "esmm": dict(embedding_dim=16, reference_shapes=True,
+                 capacity=1 << 18),
+    "mmoe": dict(embedding_dim=16, reference_shapes=True,
+                 capacity=1 << 18),
+    "dbmtl": dict(embedding_dim=16, reference_shapes=True,
+                  capacity=1 << 18),
+    "simple_multitask": dict(embedding_dim=16, reference_shapes=True,
+                             capacity=1 << 18),
+    "din": dict(embedding_dim=18, capacity=1 << 18),
+    "dien": dict(embedding_dim=18, capacity=1 << 18),
+    "bst": dict(embedding_dim=16, capacity=1 << 18),
+    "dssm": dict(embedding_dim=16, capacity=1 << 18),
+}
+MODULE_KWARGS = {
+    "wdl": dict(hidden=(1024, 512, 256)),
+    "deepfm": dict(hidden=(1024, 512, 256)),
+    "dlrm": dict(embedding_dim=16, bottom=(512, 256),
+                 top=(1024, 1024, 512, 256)),
+    "din": dict(hidden=(200, 80), att_hidden=(80, 40)),
+    "dien": dict(gru_hidden=36, hidden=(200, 80)),
+    "bst": dict(hidden=(256, 128, 64), num_blocks=1, num_heads=8),
+    "dssm": dict(tower=(256, 128, 64)),
+    "esmm": dict(tower=(256, 128)),
+    "mmoe": dict(num_experts=4, expert=(256,), tower=(128,)),
+    "dbmtl": dict(bottom=(256, 128), tower=(128,)),
+    "simple_multitask": dict(tower=(256, 128)),
+}
+# The sequence models' stream, as tools/train_zoo.py builds it.
+SEQ_DATA = dict(num_items=20_000, num_cats=1000, seq_len=50)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("model", help="zoo model name (the port has wdl)")
+    p.add_argument("model", help="zoo model name (see models/registry.py)")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch_size", type=int, default=2048)
     p.add_argument("--learning_rate", type=float, default=0.3,
@@ -98,24 +142,26 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise for what the port does not have, naming its ROADMAP item."""
-    if args.model != "wdl":
-        raise NotImplementedError(
-            f"model {args.model!r} is not ported (ROADMAP slice 4, the "
-            "model zoo); the port has wdl")
+    """Exit for an unknown model; raise for what the port does not have,
+    naming its ROADMAP item."""
+    from deeprec_tpu_torch.models.registry import ZOO
+
+    if args.model not in ZOO:
+        raise SystemExit(f"unknown model {args.model!r}; "
+                         f"choose from {sorted(ZOO)}")
     if args.adaptive_emb:
         raise NotImplementedError(
             "--adaptive_emb is not ported (ROADMAP queue 1 item 13)")
 
 
 def columns(args):
-    """The wdl columns with the flags' EV options."""
+    """The model's columns with the flags' EV options."""
     from deeprec_tpu_torch import config as cfglib
     from deeprec_tpu_torch.feature_column.feature_column import \
         EmbeddingColumn
-    from deeprec_tpu_torch.models import wdl
+    from deeprec_tpu_torch.models.registry import ZOO
 
-    cols = wdl.criteo_columns(**COLUMN_KWARGS[args.model])
+    cols = ZOO[args.model].columns(**COLUMN_KWARGS[args.model])
     if args.static_bucket:
         if args.ev:
             raise SystemExit("--static_bucket excludes --ev")
@@ -152,40 +198,67 @@ def device_of(args):
     return torch.device("cuda")
 
 
-def build(args, device):
-    """The model of the flags on ``device``: ``(estimator, make_data,
-    pack, work_queue)``. ``make_data(seed)`` is a synthetic Criteo
-    stream at the flags' batch size, ``pack(stream)`` its next batch
-    packed for the group (on the CPU with ``--smartstaged``, which moves
-    batches on its prefetch thread; else on ``device``)."""
+def make_module(args, group, device):
+    """The model's module for ``group`` on ``device``, uninitialized."""
     import torch
 
-    from deeprec_tpu_torch.data.criteo import (CRITEO_HASH_BUCKETS,
-                                               SyntheticCriteo)
+    from deeprec_tpu_torch.models.registry import ZOO
+
+    mk = dict(MODULE_KWARGS[args.model])
+    if args.model == "dlrm":
+        mk["interaction_op"] = args.interaction_op
+    if args.model == "bst":
+        mk["seq_len"] = SEQ_DATA["seq_len"]
+    return ZOO[args.model].make_module(
+        group, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        device=device, **mk)
+
+
+def build(args, device):
+    """The model of the flags on ``device``: ``(estimator, make_data,
+    pack, work_queue)``. ``make_data(seed)`` is the model's synthetic
+    stream at the flags' batch size, ``pack(stream, dev)`` its next
+    batch packed for the group on ``dev`` (by default on the CPU with
+    ``--smartstaged``, which moves batches on its prefetch thread, else
+    on ``device``)."""
+    import torch
+
+    from deeprec_tpu_torch.data.criteo import CRITEO_HASH_BUCKETS
     from deeprec_tpu_torch.data.work_queue import WorkQueue
     from deeprec_tpu_torch.feature_column.feature_column import \
         EmbeddingGroup
     from deeprec_tpu_torch.layers.core import init_dense
-    from deeprec_tpu_torch.models import wdl
+    from deeprec_tpu_torch.models.registry import SEQUENCE_MODELS, ZOO
     from deeprec_tpu_torch.optimizers import dense as dense_lib
     from deeprec_tpu_torch.optimizers import sparse as sopt
     from deeprec_tpu_torch.train import estimator as estlib
-    from deeprec_tpu_torch.train import losses
 
+    entry = ZOO[args.model]
     group = EmbeddingGroup(columns(args), coalesce=not args.no_emb_fusion)
-    module = wdl.WDL(wdl.input_width(group),
-                     dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                     device=device, **MODULE_KWARGS[args.model])
+    module = make_module(args, group, device)
     init_dense(module, torch.Generator().manual_seed(args.seed))
 
-    def make_data(seed):
-        return SyntheticCriteo(args.batch_size, vocab=CRITEO_HASH_BUCKETS,
-                               seed=seed)
+    if args.model in SEQUENCE_MODELS:
+        def make_data(seed):
+            return entry.make_data(batch_size=args.batch_size, seed=seed,
+                                   **SEQ_DATA)
 
-    pack_dev = "cpu" if args.smartstaged else device
+        def raw(d):
+            return d.next_batch_np()
+    else:
+        wide = any(c.name.endswith("_wide") for c in group.embedding)
 
-    def pack(d):
-        return group.pack_batch_np(d.next_batch_np(wide=True), pack_dev)
+        def make_data(seed):
+            return entry.make_data(batch_size=args.batch_size,
+                                   vocab=CRITEO_HASH_BUCKETS, seed=seed)
+
+        def raw(d):
+            return d.next_batch_np(wide=wide)
+
+    def pack(d, dev=None):
+        if dev is None:
+            dev = "cpu" if args.smartstaged else device
+        return group.pack_batch_np(raw(d), dev)
 
     wq = (WorkQueue([f"shard:{s}" for s in range(64)], num_epochs=1,
                     shuffle=True, seed=args.seed) if args.workqueue else None)
@@ -196,8 +269,7 @@ def build(args, device):
     else:
         dense_opt = dense_lib.Adagrad(args.learning_rate)
     est = estlib.Estimator(
-        group, wdl.apply_fn(module, group),
-        lambda out, b: losses.bce_with_logits(out, b["label"]),
+        group, entry.make_apply(module, group), entry.loss,
         sopt.SparseAdagrad(learning_rate=args.learning_rate), dense_opt,
         module.state_dict(), micro_batch_num=args.micro_batch,
         model_dir=args.checkpoint, work_queue=wq, device=device)
@@ -274,11 +346,12 @@ def main(argv=None):
         d_eval = make_data(args.seed + 10_001)
 
         def eval_batch():
-            return group.pack_batch_np(d_eval.next_batch_np(wide=True),
-                                       device)
+            return pack(d_eval, device)
 
         probe = est.predict(eval_batch())
-        if probe.dim() == 1:  # single-logit models
+        # Single-logit models only: multi-task models give a dict, DSSM
+        # its two towers, DIEN (logit, aux).
+        if isinstance(probe, torch.Tensor) and probe.dim() == 1:
             ev = est.evaluate((eval_batch()
                                for _ in range(args.eval_steps + 1)),
                               steps=args.eval_steps)
