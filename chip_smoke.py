@@ -184,6 +184,31 @@ non-zero:
    (``_compare_step_kernels``), the records under the ``zoo/din`` and
    ``zoo/deepfm`` paths.
 
+22. (p) the zoo's captured epochs and the measuring tools: each of the
+   12 runs of phase 21 at full width, B = 4,096, built by
+   ``tools/train_zoo_torch.build``, trained on a pool of 4 batches for 2
+   epochs twice from one state, by the eager loop and by
+   ``make_epoch_step`` captured (``eager_vs_graph``, as phase 20 holds
+   the headline): losses and every state tensor bit-equal; K1, K2, P1
+   and P2 launch counts reset just before each captured call and read
+   just after, each above 0; the replays' device ms a step beside the
+   eager median. The kernels' record of the ``zoo_epoch`` path sums
+   those launches and takes its times from phase 21's DIN first step,
+   which the captured DIN epoch's first step repeats. Then each tool
+   once, in this process: ``tools/zoo_auc_torch.py``'s DIN for 3
+   epochs of 4 batches, bf16 and fp32 (``ZOO_AUC.json``'s keys, 0 < AUC
+   < 1, the card's reserved memory level from the second epoch on),
+   merged by ``tools/zoo_delta_torch.py``; ``model_benchmark_torch``'s
+   DeepFM (short warm-up and measured runs; 0 < mfu < 1 where
+   ``CHIP_PEAKS`` names the card) written by
+   ``write_bench_zoo_torch``; ``serving_benchmark_torch`` at 1 and 512
+   rows; ``step_breakdown_torch --cap 17`` (its phases sum to within
+   a factor 2 of the full step); every job of
+   ``kernel_benchmark_torch`` at its shapes, each kernel held against
+   its plain version, timed beside its bound and library call (the
+   ``kernel_benchmark/JOB`` records count the launches of the job's
+   checks and timed captures); ``env_collect_torch``.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -301,6 +326,23 @@ ZOO_CPU_ROWS = 256
 ZOO_CPU_ATOL = 4e-2
 ZOO_RESUME = (6, 9)
 ZOO_KERNEL_MODELS = ("din", "deepfm")
+# Phase 22 (p): each of ZOO_RUNS at full width and B = ZOO_BATCH trained
+# on a pool of ZOO_EPOCH_POOL batches for ZOO_EPOCH_EPOCHS epochs, eager
+# against captured.
+ZOO_EPOCH_POOL, ZOO_EPOCH_EPOCHS = 4, 2
+# Then each measuring tool once, at its smallest useful size: the AUC
+# campaign's DIN for 3 epochs of 4 batches (bf16 and the fp32 twin,
+# merged by zoo_delta_torch), the model benchmark's DeepFM with short
+# warm-up and measured runs, the serving benchmark at two batch sizes,
+# the step breakdown at a capacity ceiling of 2**17, and every job of
+# the kernel benchmark at its own shapes.
+TOOL_AUC_STEPS, TOOL_AUC_POOL = 12, 4
+ZOO_AUC_ROW_KEYS = {"metric", "mode", "backend", "steps", "batch", "seed",
+                    "train_s_incl_compile", "loss_epoch_means", "loss_drops",
+                    "auc"}
+TOOL_BENCH_STEPS = (8, 14)
+TOOL_SERVING_BATCHES, TOOL_SERVING_REQUESTS = (1, 512), 10
+TOOL_BREAKDOWN_ARGS = ["--cap", "17"]
 
 
 def log(msg: str):
@@ -2107,7 +2149,7 @@ def eager_vs_graph(tr, pool, n_epochs: int, kind: str, label: str):
     by the captured ``make_epoch_step``, with the launch counts reset
     just before that call and read just after. Losses and every state
     tensor must be bit-equal. Returns (the eager run's state, launches,
-    graph replays)."""
+    {graph replays, device ms a replayed step, eager median ms})."""
     from deeprec_tpu_torch.train import loop
 
     eager = loop.clone_state(tr.ts)
@@ -2156,8 +2198,11 @@ def eager_vs_graph(tr, pool, n_epochs: int, kind: str, label: str):
                 f"differ first at {p}: max abs difference "
                 f"{float((g.double() - e.double()).abs().max())}")
     n = run["steps"]
+    stats = {"replays": run["replays"],
+             "replay_ms": replay_ms / run["replays"],
+             "eager_ms": float(np.median(ms))}
     log(f"phase {label}: {kind}, {n_epochs} x {len(pool)} steps of "
-        f"B={pool[0]['label'].shape[0]}: the "
+        f"B={loop._pool_size(pool[0])}: the "
         f"captured epoch equals the eager loop bit for bit (losses "
         f"{[round(x, 6) for x in losses.reshape(-1).tolist()]}, "
         f"{paths} state tensors); eager median synchronized step "
@@ -2169,7 +2214,7 @@ def eager_vs_graph(tr, pool, n_epochs: int, kind: str, label: str):
         f"set_sync_debug_mode('error')); the whole call {call_s:.3f} s "
         f"(step 0 eager, capture, replays); wrapper launches (step 0 and "
         f"the capture) {launches}")
-    return eager, launches, run["replays"]
+    return eager, launches, stats
 
 
 def _within(a, b, rtol, atol):
@@ -2256,8 +2301,9 @@ def phase_epoch(gather_err: float, apply_err: float):
     tr = bench.build_wdl(device="cuda")
     pool = [tr.next_batch() for _ in range(EPOCH_POOL)]
     start = loop.clone_state(tr.ts)
-    eager, launches, replays = eager_vs_graph(tr, pool, EPOCH_EPOCHS,
-                                              "adagrad", label)
+    eager, launches, stats = eager_vs_graph(tr, pool, EPOCH_EPOCHS,
+                                            "adagrad", label)
+    replays = stats["replays"]
     micro_vs_full(tr, eager, label)
     del eager
     # The kernels on the operands of the epoch's first step: the pool's
@@ -2275,8 +2321,9 @@ def phase_epoch(gather_err: float, apply_err: float):
                                    tr.sparse_opt, tr.dense_opt)
     pool = [tr.next_batch() for _ in range(EPOCH_ADAM_POOL)]
     start = loop.clone_state(tr.ts)
-    _, adam_launches, adam_replays = eager_vs_graph(tr, pool, 1, "adam",
-                                                    f"{label} Adam")
+    _, adam_launches, adam_stats = eager_vs_graph(tr, pool, 1, "adam",
+                                                  f"{label} Adam")
+    adam_replays = adam_stats["replays"]
     powers = {f"{tr.group.tables[t].dim} wide": float(sl["beta1_power"])
               for t, sl in tr.ts.slots.items()}
     count = int(tr.ts.dense_opt["count"])
@@ -2369,13 +2416,14 @@ def _path_records(path, launches, fetch, applies, gather_err, apply_err,
 
 
 def _zoo_counts(reset: bool = False) -> dict:
-    """K1, K2, P1 (insert, find) and P2 launch counts; zeroed first with
+    """K1, K2, K3, P1 (insert, find) and P2 launch counts; zeroed first with
     ``reset``."""
     from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
     if reset:
         gather.launches = 0
         sa.launches["adagrad_apply_rows"] = 0
+        sa.launches["adam_apply_rows"] = 0
         hash_probe.launches["find_or_insert"] = 0
         hash_probe.launches["find"] = 0
         init_rows.launches = 0
@@ -2383,7 +2431,8 @@ def _zoo_counts(reset: bool = False) -> dict:
             "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
             "hash_probe_insert": hash_probe.launches["find_or_insert"],
             "hash_probe_find": hash_probe.launches["find"],
-            "init_fresh_rows": init_rows.launches}
+            "init_fresh_rows": init_rows.launches,
+            "adam_apply_rows": sa.launches["adam_apply_rows"]}
 
 
 def _flat_outputs(out) -> list:
@@ -2574,6 +2623,150 @@ def phase_zoo(tmp: str, gather_err: float, apply_err: float, device="cuda"):
     return records
 
 
+def phase_zoo_epoch(device="cuda") -> dict:
+    """(p) the zoo's captured epochs; see the module's docstring.
+    Returns the launches of the captured calls summed over the runs."""
+    import types
+
+    tz = _train_zoo()
+    label = "22 (p)"
+    summary, total = {}, {}
+    t_phase = time.perf_counter()
+    for run in ZOO_RUNS:
+        name, extra = run[0], list(run[1:])
+        tag = name + ("_cat" if extra else "")
+        args = tz.parse_args([name] + ZOO_ARGS + extra)
+        est, make_data, pack, _ = tz.build(args, torch.device(device))
+        data = make_data(args.seed)
+        pool = [pack(data) for _ in range(ZOO_EPOCH_POOL)]
+        tr = types.SimpleNamespace(
+            ts=est.ts, step=est._step_fn, group=est.group,
+            apply_fn=est.apply_fn, loss_fn=est.loss_fn,
+            sparse_opt=est.sparse_opt, dense_opt=est.dense_opt)
+        _, launches, stats = eager_vs_graph(tr, pool, ZOO_EPOCH_EPOCHS,
+                                            "adagrad", f"{label} {tag}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        summary[tag] = {"replay_ms": round(stats["replay_ms"], 3),
+                        "eager_ms": round(stats["eager_ms"], 3)}
+        del est, tr, pool
+        _release()
+    log(f"phase {label}: {len(ZOO_RUNS)} zoo runs captured, each bit-equal "
+        f"to its eager loop, in {time.perf_counter() - t_phase:.3f} s; "
+        f"device ms a replayed step and eager median ms: "
+        f"{json.dumps(summary)}; launches summed {total}")
+    return total
+
+
+def _tool(name):
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    return __import__(name)
+
+
+def phase_tools(tmp: str) -> list:
+    """(p) each measuring tool once at its smallest useful size, in this
+    process; see the module's docstring. Returns the kernels' records of
+    the kernel benchmark's jobs."""
+    label = "22 (p) tools"
+    t_all = time.perf_counter()
+    za, zd = _tool("zoo_auc_torch"), _tool("zoo_delta_torch")
+    docs = {}
+    for fp32 in (False, True):
+        row = za.run("din", TOOL_AUC_STEPS, bf16=not fp32,
+                     pool=TOOL_AUC_POOL, lr=0.3, items=20_000)
+        res = row["memory_reserved_mib"]
+        if not (ZOO_AUC_ROW_KEYS <= set(row) and 0.0 < row["auc"] < 1.0
+                and np.isfinite(row["loss_epoch_means"]).all()
+                and max(res[1:]) <= res[1]):
+            raise AssertionError(f"phase {label}: zoo_auc_torch din: {row}")
+        docs[fp32] = os.path.join(tmp, f"zoo_auc_{int(fp32)}.json")
+        with open(docs[fp32], "w") as f:
+            json.dump({"models": [row]}, f)
+        log(f"phase {label}: zoo_auc_torch din {row['steps']} steps "
+            f"({row['mode']}, pool {TOOL_AUC_POOL}): AUC {row['auc']}, loss "
+            f"means {row['loss_epoch_means']}, {row['replay_ms_per_step']} "
+            f"ms a replayed step, reserved MiB after each epoch {res}")
+    zd.main(["--main", docs[False], "--fp32", docs[True]])
+    with open(docs[False]) as f:
+        merged = json.load(f)["models"][0]
+    if "bf16_fp32_delta" not in merged:
+        raise AssertionError(f"phase {label}: zoo_delta_torch: {merged}")
+
+    mb, wbz = _tool("model_benchmark_torch"), _tool("write_bench_zoo_torch")
+    row = mb.bench_model("deepfm", warmup=TOOL_BENCH_STEPS[0],
+                         measure=TOOL_BENCH_STEPS[1])
+    jsonl = os.path.join(tmp, "bench.jsonl")
+    with open(jsonl, "w") as f:
+        f.write(json.dumps(row) + "\n")
+    wbz.main([jsonl, "--out", os.path.join(tmp, "bench.json")])
+    if not (row["value"] > 0 and row["flops_per_step"] > 0
+            and ("mfu" not in row or 0 < row["mfu"] < 1)
+            and np.isfinite(row["loss"])):
+        raise AssertionError(f"phase {label}: model_benchmark_torch: {row}")
+    log(f"phase {label}: model_benchmark_torch deepfm (warm-up "
+        f"{TOOL_BENCH_STEPS[0]}, {TOOL_BENCH_STEPS[1]} measured): "
+        f"{json.dumps(row)}")
+
+    rows = _tool("serving_benchmark_torch").bench_device(
+        TOOL_SERVING_BATCHES, requests=TOOL_SERVING_REQUESTS)
+    log(f"phase {label}: serving_benchmark_torch: {json.dumps(rows)}")
+
+    sbd = _tool("step_breakdown_torch")
+    out = sbd.breakdown(sbd.parse_args(TOOL_BREAKDOWN_ARGS),
+                        torch.device("cuda"))
+    if not 0.5 < out["phase_sum_over_full"] < 2.0:
+        raise AssertionError(f"phase {label}: step_breakdown_torch: {out}")
+    log(f"phase {label}: step_breakdown_torch {' '.join(TOOL_BREAKDOWN_ARGS)}"
+        f": phases {out['phases_ms']}, sum over full "
+        f"{out['phase_sum_over_full']}")
+
+    kb = _tool("kernel_benchmark_torch")
+    src = "deeprec_tpu_torch/csrc/"
+    pallas = "deeprec_tpu/ops/pallas/"
+    origin = {
+        "gather_rows": (src + "gather_rows.cu", pallas + "gather.py:72"),
+        "adagrad_apply_rows": (src + "sparse_apply.cu",
+                               pallas + "sparse_apply.py:113"),
+        "adam_apply_rows": (src + "sparse_apply.cu",
+                            pallas + "sparse_apply.py:253"),
+        "hash_probe_insert": (src + "hash_probe.cu",
+                              "deeprec_tpu/embedding/hash_table.py:311"),
+        "hash_probe_find": (src + "hash_probe.cu",
+                            "deeprec_tpu/embedding/hash_table.py:256")}
+    records = []
+    for job in kb.JOBS:
+        _zoo_counts(reset=True)             # the job's path starts here
+        lines = kb.run_job(*job)
+        launches = _zoo_counts()            # and ends here
+        for ln in lines:
+            path = f"kernel_benchmark/{job[0]}"
+            records.append(_record(
+                f"{ln['kernel']}[{path}]", *origin[ln["kernel"]],
+                launches[ln["kernel"]], ln["max_abs_err"], ln, path))
+    env = _tool("env_collect_torch").collect(True)
+    log(f"phase {label}: env_collect_torch: torch {env['torch']} (CUDA "
+        f"{env['torch_cuda']}), {env['nvcc']}, driver {env['driver']}, "
+        f"cards {env['cards']}; the tools took "
+        f"{time.perf_counter() - t_all:.3f} s")
+    return records
+
+
+def _zoo_epoch_records(launches, zoo_records) -> list:
+    """K1, K2, P1 and P2 on the zoo's captured path: launches summed over
+    phase 22's captured calls; times, bound and errors from phase 21's
+    DIN first step, which the captured DIN epoch's first step repeats
+    (the same seed, batches, weights and fresh tables)."""
+    out = []
+    for rec in zoo_records:
+        if rec["path"] != "zoo/din" or rec["name"].startswith(
+                "hash_probe_find"):
+            continue
+        base = rec["name"].split("[")[0]
+        out.append(dict(rec, name=f"{base}[zoo_epoch]", path="zoo_epoch",
+                        launches=launches[base], times_from="zoo/din"))
+    return out
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2632,6 +2825,10 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as d:
         zoo_records = phase_zoo(d, gather_err, apply_err)
     _release()
+    zoo_epoch_launches = phase_zoo_epoch()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as d:
+        bench_records = phase_tools(d)
+    _release()
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -2648,7 +2845,9 @@ def main():
         + _path_records("ev_cbf", v_launches, v1, v2, gather_err, apply_err,
                         probes=vp, draws=vi)
         + [_probe_record("ev_cbf", v_launches, vf, kind="find")]
-        + epoch_records + zoo_records)
+        + epoch_records + zoo_records
+        + _zoo_epoch_records(zoo_epoch_launches, zoo_records)
+        + bench_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

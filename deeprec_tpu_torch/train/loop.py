@@ -231,12 +231,14 @@ class EpochStep:
         self.body = body
         self.n_epochs = n_epochs
         self.last_run: Dict[str, Any] = {}
+        self._replay: Optional[Callable[[], None]] = None  # holds the graph
 
     def __call__(self, ts: TrainState, stacked):
         K = _pool_size(stacked)
         E = self.n_epochs
         dev = next(iter(ts.params.values())).device
         if dev.type == "cuda":
+            self.release()
             losses = self._captured(ts, stacked, K, E, dev)
         else:
             losses = torch.stack([
@@ -272,18 +274,29 @@ class EpochStep:
         self.last_run = {"steps": n, "replays": n - 1, "enqueue_s": 0.0,
                          "events": None}
         if n > 1:
-            replay = _capture(one)
+            self._replay = _capture(one)
             events = tuple(torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             t0 = time.perf_counter()
             with _no_host_sync():
                 events[0].record()
                 for _ in range(n - 1):
-                    replay()
+                    self._replay()
                 events[1].record()
             self.last_run.update(enqueue_s=time.perf_counter() - t0,
                                  events=events)
         return losses
+
+    def release(self):
+        """Drop the last call's graph and return its private memory pool
+        to the card, after its replays end (waits for them). Each call
+        on the card does this first, so the card's reserved memory stays
+        level from call to call."""
+        if self._replay is None:
+            return
+        self.last_run["events"][1].synchronize()
+        self._replay = None
+        torch.cuda.empty_cache()
 
     def replay_ms(self) -> float:
         """Device milliseconds from the first replay of the last call on
@@ -314,8 +327,9 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
     read between the first replay and the last (the replays run under
     ``torch.cuda.set_sync_debug_mode("error")``). The same state and
     pool give the same bits as the eager loop. Each call captures anew,
-    since the graph holds the addresses of the state and the pool. On
-    the CPU it is a loop over the pool.
+    since the graph holds the addresses of the state and the pool; it
+    first releases the previous call's graph and its memory pool
+    (:meth:`EpochStep.release`). On the CPU it is a loop over the pool.
     """
     return EpochStep(_train_body(group, apply_fn, loss_fn, sparse_opt,
                                  dense_opt, micro_batch_num, combine_fn),

@@ -266,10 +266,17 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.models.bst, deeprec_tpu_torch.models.dssm, "
         "deeprec_tpu_torch.models.structured, "
         "deeprec_tpu_torch.models.registry, "
-        "deeprec_tpu_torch.data.behavior, deeprec_tpu_torch.train.losses\n"
+        "deeprec_tpu_torch.data.behavior, deeprec_tpu_torch.train.losses, "
+        "deeprec_tpu_torch.config, deeprec_tpu_torch.utils.keys, "
+        "deeprec_tpu_torch.utils.stateless_random\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_zoo_torch, train_wdl_torch, profile_train_torch\n"
+        "import zoo_auc_torch, zoo_delta_torch, model_benchmark_torch, "
+        "write_bench_zoo_torch, serving_benchmark_torch, "
+        "step_breakdown_torch, kernel_benchmark_torch, env_collect_torch, "
+        "chip_smoke\n"
+        "env_collect_torch.collect(touch_device=False)\n"
         "train_zoo_torch.columns(train_zoo_torch.parse_args(\n"
         "    ['wdl', '--ev', '--cbf', '--filter_freq', '2']))\n"
         "for m in train_zoo_torch.COLUMN_KWARGS:\n"
