@@ -209,6 +209,30 @@ non-zero:
    ``kernel_benchmark/JOB`` records count the launches of the job's
    checks and timed captures); ``env_collect_torch``.
 
+23. (q) ``sharded``: the headline WDL with its tables row-sharded over a
+   ``torch.distributed`` mesh (``embedding/sharded.py``), in ranks
+   spawned by ``torch.multiprocessing.spawn`` (a rank that raises fails
+   the script). (a) One rank a visible card over NCCL (one rank on a
+   one-card machine, whose all-to-alls send to itself), every table
+   sharded; (b) two gloo ranks sharing the card, the 65-wide table
+   replicated. Each rank: B = 16,384, ``SHARDED_STEPS`` steps of
+   ``SparseAdagrad(0.05)`` against the unsharded headline trained on the
+   same global batches on its card (losses within ``SHARDED_LOSS_RTOL``;
+   the keys its shards own, exactly; their rows key by key within
+   ``SHARDED_ROW_TOL``); ``n_overflow`` 0; K1, K2, P1 and P2 launch
+   counts reset just before the steps and read just after, each above
+   0; the ms of each step between CUDA events beside the unsharded
+   step's, no host sync in the last step (the sync debug mode's
+   warnings; gloo's own threads sync outside it), and in the one before it
+   each all-to-all, all-gather and all-reduce (bytes sent, ms between
+   CUDA events); the sharded eval of the next batch against the
+   unsharded eval (``SHARDED_LOGIT_ATOL``); a sharded checkpoint saved
+   and restored unsharded: the same keys and rows, and its eval logits.
+   In (a), K1, K2, P1 and P2 on the owner side of one more sharded
+   step's lookups and gradients, each against its plain version and
+   timed (the ``sharded`` records; gloo's ranks share the card, so (b)
+   times nothing but its steps).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -326,6 +350,21 @@ ZOO_CPU_ROWS = 256
 ZOO_CPU_ATOL = 4e-2
 ZOO_RESUME = (6, 9)
 ZOO_KERNEL_MODELS = ("din", "deepfm")
+# Phase 23 (q): steps of the sharded runs; the sharded step against the
+# unsharded one on the same global batches (loss, rows key by key, eval
+# logits); (b)'s placement threshold, which replicates the 65-wide table
+# (a full footprint of 417 MB: values and two float32 slot arrays, 16
+# bytes a row beside) and shards the 129-wide one (6.6 GB). Readings on
+# an H100: (a) bit-equal (losses, rows, logits); (b) losses within
+# 7.4e-7 relative, rows within 2.9e-7, eval logits within 4.7e-4 (the
+# towers' bf16 GEMMs at two batch sizes, gradients summed in halves).
+# The bounds: rtol 1e-4 (tests/test_sharded_embedding.py's), rows 35x
+# and logits 4x the readings (logits step by 2**-8 near 1 in bf16).
+SHARDED_STEPS = 5
+SHARDED_LOSS_RTOL = 1e-4
+SHARDED_ROW_TOL = dict(rtol=1e-4, atol=1e-5)
+SHARDED_LOGIT_ATOL = 2e-3
+GLOO_REPLICATE_THRESHOLD = 1 << 30
 # Phase 22 (p): each of ZOO_RUNS at full width and B = ZOO_BATCH trained
 # on a pool of ZOO_EPOCH_POOL batches for ZOO_EPOCH_EPOCHS epochs, eager
 # against captured.
@@ -1365,14 +1404,17 @@ def phase_apply_kernels() -> float:
 
 
 def _step_grads(tr, batch):
-    """One step's lookup and row gradients, without the applies."""
+    """One step's lookup and row gradients, without the applies (on a
+    mesh trainer's mesh: its exchanges included)."""
     ts, group = tr.ts, tr.group
-    _, gl = group.lookup_train(ts.ev, batch, ts.step)
+    mesh = getattr(tr, "mesh", None)
+    _, gl = group.lookup_train(ts.ev, batch, ts.step, mesh)
     rows = {t: lk.rows.detach().requires_grad_() for t, lk in gl.lks.items()}
     params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
     out = tr.apply_fn(params, group.combine(gl, rows), batch)
     per_ex = tr.loss_fn(out, batch)
-    grads = torch.autograd.grad(per_ex.sum() / per_ex.shape[0],
+    n_ranks = 1 if mesh is None else mesh.size
+    grads = torch.autograd.grad(per_ex.sum() / (per_ex.shape[0] * n_ranks),
                                 list(rows.values()))
     return gl, dict(zip(rows, grads))
 
@@ -1426,7 +1468,8 @@ def _compare_step_kernels(tr, kind, label, batch):
             for ops in _step_applies(tr, kind, gl, grads)]
     del gl, grads
     with captured_probes() as probes:
-        tr.group.lookup_train(tr.ts.ev, batch, tr.ts.step)
+        tr.group.lookup_train(tr.ts.ev, batch, tr.ts.step,
+                              getattr(tr, "mesh", None))
     compare_probes(f"{label} same batch again", probes)
     return fetch, recs, probe, draws
 
@@ -2767,6 +2810,260 @@ def _zoo_epoch_records(launches, zoo_records) -> list:
     return out
 
 
+def _table_keys_rows(cfg, state, owner=None):
+    """(sorted int64 keys, their rows) of a table's live rows; with
+    ``owner = (rank, S)``, only the keys the shard hash gives that rank."""
+    from deeprec_tpu_torch.embedding import variable as ev
+    from deeprec_tpu_torch.utils import keys as keylib
+    snap = ev.export_arrays(cfg, state)
+    keys, rows = snap["keys"], snap["values"]
+    if owner is not None:
+        mine = keylib.shard_of_np(keys, owner[1]) == owner[0]
+        keys, rows = keys[mine], rows[mine]
+    order = np.argsort(keys)
+    return keys[order], rows[order]
+
+
+def _trace_summary(trace) -> dict:
+    """Per collective kind of a traced step: calls, bytes this rank sent
+    and the ms between each call's CUDA events, summed."""
+    out = {}
+    for rec in trace:
+        start, end = rec["events"]
+        end.synchronize()
+        d = out.setdefault(rec["kind"], {"calls": 0, "bytes": 0, "ms": []})
+        d["calls"] += 1
+        d["bytes"] += rec["bytes"]
+        d["ms"].append(start.elapsed_time(end))
+    return out
+
+
+def _collectives_check(mesh, label: str):
+    """The mesh's backend on CUDA tensors: ``all_to_all_single``,
+    ``all_gather`` and ``all_reduce`` give the right results (gloo
+    stages CUDA tensors through host memory, where its build allows)."""
+    S, r, dev = mesh.size, mesh.rank, mesh.device
+    x = torch.arange(4 * S, dtype=torch.int32, device=dev) + 100 * r
+    peers = [torch.arange(4, dtype=torch.int32) + 100 * j for j in range(S)]
+    want = {"all_to_all": torch.cat([p + 4 * r for p in peers]),
+            "all_gather": torch.cat(peers),
+            "all_reduce": torch.arange(4 * S, dtype=torch.int32) * S
+            + 100 * sum(range(S))}
+    got = {"all_to_all": mesh.all_to_all(x),
+           "all_gather": mesh.all_gather(x[:4]),
+           "all_reduce": mesh.all_reduce_(x.clone())}
+    for k, v in got.items():
+        if not torch.equal(v.cpu(), want[k]):
+            raise AssertionError(f"phase {label}: {mesh.backend} {k} on "
+                                 f"CUDA tensors gave {v.tolist()}")
+    log(f"phase {label}: {mesh.backend} takes CUDA tensors in "
+        f"all_to_all_single, all_gather and all_reduce (results right)")
+
+
+def _sharded_run(mesh, tmp: str, compare_kernels: bool) -> dict:
+    """Phase 23 on one rank: the headline WDL sharded over ``mesh`` and
+    the unsharded headline on the same global batches, both on this
+    rank's card; see :func:`phase_sharded`."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    dev, S, r = mesh.device, mesh.size, mesh.rank
+    part = "a" if mesh.backend == "nccl" else "b"
+    label = f"23 ({part}) rank {r} of {S}, {mesh.backend}"
+    group_kw = ({} if part == "a" else dict(
+        placement="auto", replicate_threshold=GLOO_REPLICATE_THRESHOLD))
+    _collectives_check(mesh, label)
+    tr = bench.build_wdl(device=dev, mesh=mesh, group_kw=group_kw)
+    ref = bench.build_wdl(device=dev, batch=BATCH * S)
+    plan = tr.group.placement_plan()
+    log(f"phase {label}: placement {plan}; this rank's tables "
+        f"{_table_shapes(tr)}, B = {BATCH} a rank")
+    batches = [tr.next_batch() for _ in range(SHARDED_STEPS + 2)]
+    ref_batches = [ref.next_batch() for _ in range(SHARDED_STEPS + 1)]
+
+    count_syncs = _tool("profile_train_torch").count_syncs
+
+    def run(trainer, bs, traced: bool):
+        ts, losses, over, ms, syncs, trace = trainer.ts, [], [], [], {}, {}
+        for i, b in enumerate(bs):
+            if traced and i == SHARDED_STEPS - 2:
+                mesh.trace = []
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            box = {}
+
+            def step(ts_, b_):
+                box["ts"], box["m"] = trainer.step(ts_, b_)
+                return box["ts"], box["m"]
+
+            events[0].record()
+            if i == SHARDED_STEPS - 1:
+                syncs = count_syncs(step, ts, b)[1]
+            else:
+                step(ts, b)
+            events[1].record()
+            ts, m = box["ts"], box["m"]
+            events[1].synchronize()
+            ms.append(events[0].elapsed_time(events[1]))
+            losses.append(float(m["loss"]))
+            over.append(int(m["n_overflow"]))
+            if traced and mesh.trace is not None:
+                trace = _trace_summary(mesh.trace)
+                mesh.trace = None
+        trainer.ts = ts
+        return losses, over, ms, syncs, trace
+
+    _zoo_counts(reset=True)
+    losses, over, ms, syncs, trace = run(tr, batches[:SHARDED_STEPS], True)
+    launches = _zoo_counts()
+    ref_losses, _, ref_ms, ref_syncs, _ = run(
+        ref, ref_batches[:SHARDED_STEPS], False)
+    if any(over):
+        raise AssertionError(f"phase {label}: n_overflow {over}")
+    if syncs or ref_syncs:
+        raise AssertionError(f"phase {label}: host syncs in a step: sharded "
+                             f"{syncs}, unsharded {ref_syncs}")
+    if not all(np.isfinite(losses)):
+        raise FloatingPointError(f"phase {label}: losses {losses}")
+    np.testing.assert_allclose(losses, ref_losses, rtol=SHARDED_LOSS_RTOL,
+                               err_msg=f"phase {label}: loss")
+    missing = [k for k in ("gather_rows", "adagrad_apply_rows",
+                           "hash_probe_insert", "init_fresh_rows")
+               if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"phase {label}: no launch of {missing} on the "
+                             f"sharded path ({launches})")
+    row_err = {}
+    for t, cfg in tr.group.tables.items():
+        owner = (r, S) if tr.group._is_stacked(t) else None
+        k_m, v_m = _table_keys_rows(cfg, tr.ts.ev[t])
+        k_r, v_r = _table_keys_rows(ref.group.tables[t], ref.ts.ev[t],
+                                    owner)
+        if not np.array_equal(k_m, k_r):
+            raise AssertionError(f"phase {label}: table {t}: key sets "
+                                 f"differ ({k_m.size} keys against "
+                                 f"{k_r.size})")
+        np.testing.assert_allclose(v_m, v_r, **SHARDED_ROW_TOL,
+                                   err_msg=f"phase {label}: rows of {t}")
+        row_err[t] = float(np.abs(v_m - v_r).max()) if v_m.size else 0.0
+    rows = slice(r * BATCH, (r + 1) * BATCH)
+    logits = trainlib.make_eval_step(tr.group, tr.apply_fn, mesh)(
+        tr.ts, batches[SHARDED_STEPS]).float()
+    ref_eval = trainlib.make_eval_step(ref.group, ref.apply_fn)
+    ref_logits = ref_eval(ref.ts, ref_batches[SHARDED_STEPS]).float()[rows]
+    eval_err = float((logits - ref_logits).abs().max())
+    if not eval_err <= SHARDED_LOGIT_ATOL:
+        raise AssertionError(f"phase {label}: sharded eval logits differ "
+                             f"from the unsharded ones by {eval_err}")
+    ckpt = os.path.join(tmp, f"ckpt-{mesh.backend}")
+    t0 = time.perf_counter()
+    ckptlib.CheckpointManager(ckpt, tr.group, mesh=mesh).save(tr.ts)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ckptlib.CheckpointManager(ckpt, ref.group).restore(ref.ts)
+    restore_s = time.perf_counter() - t0
+    for t, cfg in tr.group.tables.items():
+        owner = (r, S) if tr.group._is_stacked(t) else None
+        k_m, v_m = _table_keys_rows(cfg, tr.ts.ev[t])
+        k_r, v_r = _table_keys_rows(ref.group.tables[t], restored.ev[t],
+                                    owner)
+        if not (np.array_equal(k_m, k_r) and np.array_equal(v_m, v_r)):
+            raise AssertionError(f"phase {label}: table {t} restored "
+                                 f"unsharded differs from the shard saved")
+    restored_logits = ref_eval(restored, ref_batches[SHARDED_STEPS]).float()
+    restore_err = float((restored_logits[rows] - logits).abs().max())
+    if not restore_err <= SHARDED_LOGIT_ATOL:
+        raise AssertionError(f"phase {label}: eval logits of the unsharded "
+                             f"restore differ by {restore_err}")
+    del restored, ref
+    torch.cuda.empty_cache()
+    out = {"placement": plan, "losses": losses, "ref_losses": ref_losses,
+           "n_overflow": over, "step_ms": ms, "ref_step_ms": ref_ms,
+           "syncs": syncs, "ref_syncs": ref_syncs, "trace": trace,
+           "launches": launches, "row_err": row_err, "eval_err": eval_err,
+           "restore_err": restore_err, "save_s": save_s,
+           "restore_s": restore_s}
+    if compare_kernels:
+        fetch, applies, probes, draws = _compare_step_kernels(
+            tr, "adagrad", f"{label} owner side", batches[SHARDED_STEPS + 1])
+        out["kernels"] = {"fetch": fetch, "applies": applies,
+                          "probes": probes, "draws": draws}
+    return out
+
+
+def _sharded_rank(rank, world, backend, tmp, card, draws, compare_kernels):
+    """A spawned rank of phase 23: joins a ``backend`` group of ``world``
+    ranks (a ``FileStore`` under ``tmp``), runs :func:`_sharded_run` and
+    writes its results to ``tmp/<backend>-r<rank>.json``."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    CARD.update(card)
+    DRAW_INSTRUCTIONS.update(draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(
+        backend=backend, rank=rank, world_size=world, device="cuda",
+        init_method="file://" + os.path.join(tmp, f"store-{backend}"))
+    try:
+        out = _sharded_run(meshlib.data_mesh(world), tmp, compare_kernels)
+        with open(os.path.join(tmp, f"{backend}-r{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(tmp: str):
+    """Phase 23: the sharded path in spawned ranks (a rank that raises
+    fails the spawn). Returns (summed launches, rank 0's kernel records
+    of (a))."""
+    import torch.multiprocessing as mp
+    results = {}
+    for part, backend, world in (("a", "nccl", torch.cuda.device_count()),
+                                 ("b", "gloo", 2)):
+        t0 = time.perf_counter()
+        mp.spawn(_sharded_rank, nprocs=world, join=True, args=(
+            world, backend, tmp, dict(CARD), dict(DRAW_INSTRUCTIONS),
+            part == "a"))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{backend}-r{r}.json")) as f:
+                ranks.append(json.load(f))
+        results[part] = ranks
+        for r, res in enumerate(ranks):
+            tr_ = res["trace"]
+            xbytes = sum(d["bytes"] for d in tr_.values())
+            log(f"phase 23 ({part}) {backend} rank {r} of {world}: "
+                f"placement {res['placement']}; losses {res['losses']} "
+                f"(unsharded {res['ref_losses']}, rtol "
+                f"{SHARDED_LOSS_RTOL}); n_overflow {res['n_overflow']}; "
+                f"rows' max abs diff from the unsharded tables "
+                f"{res['row_err']}; eval logits {res['eval_err']:.3g}, "
+                f"after an unsharded restore {res['restore_err']:.3g}; "
+                f"save {res['save_s']:.3f} s, unsharded restore "
+                f"{res['restore_s']:.3f} s; launches {res['launches']}")
+            log(f"phase 23 ({part}) rank {r}: ms a step between CUDA "
+                f"events: sharded {res['step_ms']} (median of steps 2-"
+                f"{SHARDED_STEPS - 1} {np.median(res['step_ms'][1:-1]):.3f}"
+                f"), unsharded {res['ref_step_ms']} (median "
+                f"{np.median(res['ref_step_ms'][1:-1]):.3f}); host syncs in "
+                f"step {SHARDED_STEPS}: sharded {sum(res['syncs'].values())}"
+                f" {res['syncs']}, unsharded "
+                f"{sum(res['ref_syncs'].values())}; exchanged in step "
+                f"{SHARDED_STEPS - 1}: {xbytes} bytes sent by this rank; "
+                + "; ".join(
+                    f"{k}: {d['calls']} calls, {d['bytes']} bytes, ms "
+                    f"{[round(x, 4) for x in d['ms']]} (sum "
+                    f"{sum(d['ms']):.4f})" for k, d in tr_.items()))
+        log(f"phase 23 ({part}): {world} {backend} rank(s) in "
+            f"{time.perf_counter() - t0:.3f} s")
+    launches = {}
+    for res in results["a"]:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, results["a"][0]["kernels"]
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2829,6 +3126,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as d:
         bench_records = phase_tools(d)
     _release()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
+        sh_launches, sh = phase_sharded(d)
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -2847,7 +3146,10 @@ def main():
         + [_probe_record("ev_cbf", v_launches, vf, kind="find")]
         + epoch_records + zoo_records
         + _zoo_epoch_records(zoo_epoch_launches, zoo_records)
-        + bench_records)
+        + bench_records
+        + _path_records("sharded", sh_launches, sh["fetch"], sh["applies"],
+                        gather_err, apply_err, probes=sh["probes"],
+                        draws=sh["draws"]))
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

@@ -40,6 +40,7 @@ FILE_SECONDS = {
     "tests/test_hash_table.py": 42.9,
     "tests/test_torch_train.py": 41.5,
     "tests/test_estimator.py": 41.4,
+    "tests/test_torch_sharded.py": 38.5,
     "tests/test_torch_checkpoint.py": 38.0,
     "tests/test_fused_combine.py": 36.9,
     "tests/test_serving.py": 35.2,
@@ -50,6 +51,7 @@ FILE_SECONDS = {
     "tests/test_torch_zoo_layers.py": 31.4,
     "tests/test_static_bucket.py": 29.8,
     "tests/test_torch_static_bucket.py": 29.3,
+    "tests/test_torch_mesh_train.py": 28.4,
     "tests/test_torch_estimator.py": 28.5,
     "tests/test_torch_zoo.py": 26.0,
     "tests/test_torch_epoch.py": 25.9,

@@ -86,11 +86,17 @@ class Trainer:
     device: torch.device
     wide: bool      # whether batches carry C*_wide columns
     metric: str
+    mesh: Any = None  # a trainer of one rank of a mesh
 
     def next_batch(self):
-        """The stream's next batch, packed on the trainer's device."""
-        return self.group.pack_batch_np(
-            self.data.next_batch_np(wide=self.wide), self.device)
+        """The stream's next batch, packed on the trainer's device; on a
+        mesh, this rank's rows of the stream's global batch."""
+        raw = self.data.next_batch_np(wide=self.wide)
+        if self.mesh is not None:
+            b = len(raw["label"]) // self.mesh.size
+            raw = {k: v[self.mesh.rank * b:(self.mesh.rank + 1) * b]
+                   for k, v in raw.items()}
+        return self.group.pack_batch_np(raw, self.device)
 
 
 def _loss(out, batch):
@@ -109,32 +115,43 @@ def _sparse_opt(sparse_opt):
 
 
 def _assemble(cols, hidden, dtype, device, sparse_opt, data, *,
-              wide: bool, metric: str) -> Trainer:
+              wide: bool, metric: str, mesh=None,
+              group_kw=None) -> Trainer:
     device = torch.device(device)
-    group = EmbeddingGroup(cols, coalesce=True)
+    group = EmbeddingGroup(cols, coalesce=True, **(group_kw or {}))
     model = wdl.WDL(wdl.input_width(group), hidden=hidden, dtype=dtype,
                     device=device)
     init_dense(model, torch.Generator().manual_seed(0))
     sopt = _sparse_opt(sparse_opt)
     dopt = dense_lib.Adagrad(0.05)
     ts = trainlib.create_train_state(group, model.state_dict(), dopt, sopt,
-                                     device)
+                                     device, mesh)
     afn = wdl.apply_fn(model, group)
-    step = trainlib.make_train_step(group, afn, _loss, sopt, dopt)
+    step = trainlib.make_train_step(group, afn, _loss, sopt, dopt,
+                                    mesh=mesh)
     return Trainer(group=group, data=data, ts=ts, step=step,
                    sparse_opt=sopt, dense_opt=dopt, model=model,
                    apply_fn=afn, loss_fn=_loss, device=device, wide=wide,
-                   metric=metric)
+                   metric=metric, mesh=mesh)
 
 
 def build_wdl(reference_shapes: bool = True, device="cuda",
-              sparse_opt="adagrad",
-              static_buckets: bool = False) -> Trainer:
-    """The ``bench.py`` WDL at B = 16,384: reference shapes (the
-    headline; with ``static_buckets``, the static row), or uniform dim
-    16 over ids of a 200,000 vocabulary. ``sparse_opt``: a name of
+              sparse_opt="adagrad", static_buckets: bool = False,
+              batch: int = BATCH, mesh=None,
+              group_kw=None) -> Trainer:
+    """The ``bench.py`` WDL at B = ``batch`` (16,384): reference shapes
+    (the headline; with ``static_buckets``, the static row), or uniform
+    dim 16 over ids of a 200,000 vocabulary. ``sparse_opt``: a name of
     ``optimizers.sparse.BY_NAME`` ("adagrad": lr 0.05, the headline;
-    the others at their defaults) or an optimizer object."""
+    the others at their defaults) or an optimizer object. On a ``mesh``
+    (``parallel.mesh.Mesh``) the tables are row-sharded over its ranks
+    (``group_kw``: further ``EmbeddingGroup`` arguments, such as a
+    ``placement``), the stream's batches are global, ``batch`` rows a
+    rank, and the trainer is this rank's; every rank builds the same
+    tower weights."""
+    if mesh is not None:
+        group_kw = dict(axis_name=mesh.axis_name, num_shards=mesh.size,
+                        **(group_kw or {}))
     evo = cfglib.EmbeddingVariableOption(record_freq=False,
                                          record_version=False)
     cols = wdl.criteo_columns(embedding_dim=16, capacity=1 << 20,
@@ -142,13 +159,14 @@ def build_wdl(reference_shapes: bool = True, device="cuda",
                               wide_in_deep=True, ev_option=evo,
                               static_buckets=static_buckets)
     data = SyntheticCriteo(
-        BATCH, vocab=CRITEO_HASH_BUCKETS if reference_shapes else 200_000,
-        seed=0)
+        batch * (1 if mesh is None else mesh.size),
+        vocab=CRITEO_HASH_BUCKETS if reference_shapes else 200_000, seed=0)
     metric = ("wdl_static_bucket_samples_per_sec" if static_buckets
               else "wdl_criteo_samples_per_sec" if reference_shapes
               else "wdl_dim16_samples_per_sec")
     return _assemble(cols, (1024, 512, 256), torch.bfloat16, device,
-                     sparse_opt, data, wide=False, metric=metric)
+                     sparse_opt, data, wide=False, metric=metric, mesh=mesh,
+                     group_kw=group_kw)
 
 
 def build_small(device="cuda", sparse_opt: str = "adagrad",

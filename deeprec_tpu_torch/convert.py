@@ -17,6 +17,13 @@ port's ``{"sum_of_squares": state dict}`` and its Adam state
 "mu", "nu"}``. A table's ``bloom`` (a CBF table's full counter array)
 crosses as it is, like every other field. Everything crosses as
 numpy.
+
+Sharded tables: the JAX package holds a row-sharded table's state, and
+its optimizer slots, with a leading ``[S]`` shard axis on every leaf
+(``sharded.create_stacked``, a mesh ``TrainState``); the port's rank
+``s`` holds shard ``s`` alone. :func:`shard_of_stacked` takes shard
+``s`` out of such a tree of numpy arrays, :func:`stack_shards` puts
+the ranks' trees back together.
 """
 
 from __future__ import annotations
@@ -93,6 +100,23 @@ def ev_state_to_numpy(state: EVState) -> Dict[str, np.ndarray]:
         "default_bank": state.default_bank.cpu().numpy(),
         "bloom": state.bloom.cpu().numpy(),
     }
+
+
+def shard_of_stacked(tree, shard: int):
+    """Shard ``shard`` of every leaf of a dict tree of ``[S, ...]``
+    numpy arrays (a JAX stacked ``EVState`` as :data:`EV_FIELDS`, or a
+    table's slot dict)."""
+    if hasattr(tree, "items"):
+        return {k: shard_of_stacked(v, shard) for k, v in tree.items()}
+    return np.asarray(tree)[shard]
+
+
+def stack_shards(trees):
+    """Inverse of :func:`shard_of_stacked` over every shard: the ranks'
+    dict trees of numpy arrays -> one tree of ``[S, ...]`` arrays."""
+    if hasattr(trees[0], "items"):
+        return {k: stack_shards([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
 
 
 def slots_from_numpy(slots: Dict[str, Dict[str, Any]],

@@ -37,7 +37,9 @@ def dedup(hi, lo) -> DedupResult:
     the sentinel's. One sort of an int64 key ``(hi << 32) + (lo +
     2**31)``, which orders as the pairs do, then run flags, a cumsum and
     scatters into the fixed-size outputs: no ``torch.unique``, whose
-    size is data-dependent, and no host read."""
+    size is data-dependent, and no host read. A run's count is the
+    distance to the next run's start, not a sum of ones: a scatter-add
+    of the padding's long run would queue its atomics on one counter."""
     n = hi.shape[0]
     dev = hi.device
     key = (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + 2**31)
@@ -47,16 +49,23 @@ def dedup(hi, lo) -> DedupResult:
     run = torch.cumsum(first.to(torch.int64), 0) - 1
     inverse = torch.empty(n, dtype=torch.int64, device=dev)
     inverse[order] = run
-    at = torch.where(first, run, n)
-    uhi = torch.full((n + 1,), keylib.EMPTY_HI, dtype=torch.int32,
+    # A run's first entry writes its unique's slot; the others write
+    # spill slots of their own (n + position; entry 0 always starts a
+    # run, so slot n is never one), cut off after: the padding's long
+    # run would otherwise queue its writes on one slot.
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    at = torch.where(first, run, n + pos)
+    uhi = torch.full((2 * n,), keylib.EMPTY_HI, dtype=torch.int32,
                      device=dev)
-    ulo = torch.full((n + 1,), keylib.EMPTY_LO, dtype=torch.int32,
+    ulo = torch.full((2 * n,), keylib.EMPTY_LO, dtype=torch.int32,
                      device=dev)
     uhi[at] = hi[order]
     ulo[at] = lo[order]
     uhi, ulo = uhi[:n], ulo[:n]
-    counts = torch.zeros(n, dtype=torch.int32, device=dev)
-    counts.index_add_(0, run, torch.ones(n, dtype=torch.int32, device=dev))
+    # start[u]: the sorted position where run u starts; n past the last.
+    start = torch.full((2 * n,), n, dtype=torch.int64, device=dev)
+    start[at] = pos
+    counts = (start[1:n + 1] - start[:n]).to(torch.int32)
     counts = torch.where(uhi != keylib.EMPTY_HI, counts, 0)
     return DedupResult(uhi, ulo, counts, inverse)
 

@@ -96,16 +96,19 @@ def _check_ported(cfg: cfglib.TableConfig):
 _STATIC_INIT_ROWS = 1 << 16
 
 
-def _create_static(cfg: cfglib.TableConfig, device, salt: int, bank):
+def _create_static(cfg: cfglib.TableConfig, device, salt: int, bank,
+                   shard: int, num_shards: int):
     """Static hash-bucket table: the full [N, dim] matrix drawn up front
     (row r is the initializer's draw for the pseudo-id (7777 + salt,
-    r)), a zero sentinel row N, and 1-element dummy metadata and hash
-    table, as in the JAX package."""
+    g), g = r * num_shards + shard its global slot), a zero sentinel row
+    N, and 1-element dummy metadata and hash table, as in the JAX
+    package."""
     N, dim = cfg.capacity, cfg.dim
     values = torch.zeros((N + 1, dim), dtype=cfg.dtype, device=device)
     for start in range(0, N, _STATIC_INIT_ROWS):
         end = min(start + _STATIC_INIT_ROWS, N)
-        row_lo = torch.arange(start, end, dtype=torch.int32, device=device)
+        row_lo = (torch.arange(start, end, dtype=torch.int32, device=device)
+                  * num_shards + shard)
         row_hi = torch.full_like(row_lo, 7777 + salt)
         values[start:end] = srand.init_rows(
             cfg.initializer, row_hi, row_lo, dim, cfg.init_scale,
@@ -120,10 +123,14 @@ def _create_static(cfg: cfglib.TableConfig, device, salt: int, bank):
     )
 
 
-def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
+def create(cfg: cfglib.TableConfig, device, salt: int = 0, shard: int = 0,
+           num_shards: int = 1) -> EVState:
     """Empty table on ``device`` (a static table: its full initialized
     matrix). ``salt`` decorrelates the default bank and a static
-    matrix's draws across tables, as in the JAX package."""
+    matrix's draws across tables, as in the JAX package. A static
+    table's shard ``shard`` of ``num_shards`` (``sharded.create_shard``)
+    holds global slot ``r * num_shards + shard`` at local row ``r``; an
+    EV table's shards start empty alike."""
     _check_ported(cfg)
     capacity, dim = cfg.capacity, cfg.dim
     dvd = max(1, cfg.ev_option.default_value_dim)
@@ -137,7 +144,7 @@ def create(cfg: cfglib.TableConfig, device, salt: int = 0) -> EVState:
         # Random initializers: unseen keys read zeros.
         bank = torch.zeros((dvd, dim), dtype=torch.float32, device=device)
     if cfg.static_buckets:
-        return _create_static(cfg, device, salt, bank)
+        return _create_static(cfg, device, salt, bank, shard, num_shards)
     f = cfg.ev_option.filter_option
     n_counters = f.num_counters if isinstance(f, cfglib.CBFFilter) else 1
     return EVState(
@@ -244,7 +251,11 @@ def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
     state.freqs.index_put_((new_idx,), torch.where(
         is_new, 0, state.freqs[capacity]).to(torch.int32))
     widx, ok = _drop_idx(slots, capacity)
-    state.freqs.index_add_(0, widx, torch.where(ok, counts, 0))
+    # The ids are distinct, so each placed row takes one count: a read,
+    # an add and a write, not a scatter-add, whose atomics would queue
+    # on row C, where every unplaced and padding entry goes.
+    state.freqs.index_put_((widx,), state.freqs[widx]
+                           + torch.where(ok, counts, 0))
     state.versions.index_put_((widx,), torch.where(
         ok, global_step, state.versions[capacity]).to(torch.int32))
 
@@ -621,11 +632,16 @@ def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarr
 
 
 def import_arrays(cfg: cfglib.TableConfig, state: EVState,
-                  arrays: dict[str, np.ndarray], chunk: int = 8192,
+                  arrays: dict[str, np.ndarray], partition_id: int = 0,
+                  partition_num: int = 1, chunk: int = 8192,
                   extra_targets: Optional[dict[str, torch.Tensor]] = None):
     """Bulk-insert rows (keys, values, freqs, versions) into ``state``,
-    in place, ``chunk`` keys at a time. Rows whose probe overflows the
-    table are dropped, as in the JAX package.
+    in place, ``chunk`` keys at a time, keeping only the keys of
+    partition ``partition_id`` of ``partition_num``: restore-time
+    re-sharding, so a checkpoint of any shard count restores onto any
+    other. An EV key belongs to the partition its shard hash names
+    (``keys.shard_of_np``). Rows whose probe overflows the table are
+    dropped, as in the JAX package.
 
     ``extra_targets``: further row-aligned ``[C+1, ...]`` tensors (an
     optimizer's slot rows) written at the same slots, in place, from
@@ -633,15 +649,21 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
     extra_targets)`` when they are given.
 
     A CBF table takes its counters from ``arrays["bloom"]`` where
-    given. A static table takes the keys as row indices and assigns
-    those rows (one partition; keys outside ``[0, N)`` are dropped)."""
+    given. A static table takes the keys as global row indices: with
+    ``partition_num > 1`` it keeps the rows ``g % partition_num ==
+    partition_id`` at local row ``g // partition_num``; rows beyond its
+    ``N`` are dropped."""
     ids = np.asarray(arrays["keys"], np.int64)
     if cfg.static_buckets:
-        return _import_static(cfg, state, ids, arrays, extra_targets)
-    vals = np.asarray(arrays["values"])
-    freqs = np.asarray(arrays["freqs"]).astype(np.int32)
-    versions = np.asarray(arrays["versions"]).astype(np.int32)
-    extras = {name: np.asarray(arrays[f"slot/{name}"])
+        return _import_static(cfg, state, ids, arrays, extra_targets,
+                              partition_id, partition_num)
+    keep = (keylib.shard_of_np(ids, partition_num) == partition_id
+            if partition_num > 1 else slice(None))
+    ids = ids[keep]
+    vals = np.asarray(arrays["values"])[keep]
+    freqs = np.asarray(arrays["freqs"]).astype(np.int32)[keep]
+    versions = np.asarray(arrays["versions"]).astype(np.int32)[keep]
+    extras = {name: np.asarray(arrays[f"slot/{name}"])[keep]
               for name in (extra_targets or {})}
     dev = state.values.device
     capacity = cfg.capacity
@@ -680,10 +702,13 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
 
 def _import_static(cfg: cfglib.TableConfig, state: EVState, ids: np.ndarray,
                    arrays: dict[str, np.ndarray],
-                   extra_targets: Optional[dict[str, torch.Tensor]]):
+                   extra_targets: Optional[dict[str, torch.Tensor]],
+                   partition_id: int, partition_num: int):
     dev = state.values.device
-    ok = (ids >= 0) & (ids < cfg.capacity)
-    idx = torch.from_numpy(ids[ok]).to(dev)
+    local = ids // partition_num
+    ok = ((ids >= 0) & (ids % partition_num == partition_id)
+          & (local < cfg.capacity))
+    idx = torch.from_numpy(local[ok]).to(dev)
 
     def put(dst, src):
         dst[idx] = torch.from_numpy(np.asarray(src)[ok]).to(dev, dst.dtype)

@@ -18,8 +18,18 @@ Batch convention:
     padded with the EMPTY sentinel id.
 
 Sequence columns (``SequenceEmbeddingColumn``) combine to their
-per-position rows and mask. Not ported yet: sharded placement,
-adaptive, weighted and dyn-dim hot columns.
+per-position rows and mask.
+
+A group built for a mesh (``axis_name``, ``num_shards``) places each
+physical table (``placement``): "sharded" tables are row-sharded over
+the ranks, each rank holding its shard (``embedding/sharded.py``:
+ids exchanged all-to-all, looked up on the owner, rows exchanged
+back), and "replicated" ones are held whole on every rank (a union
+lookup of the ranks' ids, no exchange). The mesh itself is passed to
+``lookup_train`` and ``create_state``; a mesh group routes its sharded
+tables through the exchange even at one rank. Not ported yet:
+adaptive, weighted and dyn-dim hot columns, and dynamic-dimension
+tables on a mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from deeprec_tpu_torch import config as cfglib
 from deeprec_tpu_torch.embedding import lookup as lkup
+from deeprec_tpu_torch.embedding import sharded
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.utils import keys as keylib
 
@@ -162,6 +173,8 @@ class ColumnLookup(NamedTuple):
     table_name: str
     inverse: torch.Tensor   # [B, L]
     mask: torch.Tensor      # [B, L]
+    # A mesh table's ``sharded.Routing`` or ``sharded.RepRouting``.
+    routing: Any = None
 
 
 class GroupLookup(NamedTuple):
@@ -169,20 +182,43 @@ class GroupLookup(NamedTuple):
 
     lks: Dict[str, ev.LookupResult]      # per table (rows: the grad inputs)
     columns: Dict[str, ColumnLookup]     # per column
-    # Distinct ids dropped by each table's unique budget this step.
+    # Distinct ids dropped by each table's unique budget (on a mesh, by
+    # a sharded table's exchange) this step.
     budget_overflow: Dict[str, torch.Tensor]
+    mesh: Any = None                     # the mesh of a sharded lookup
 
 
 class EmbeddingGroup:
-    """Owns every embedding table of a model (single device)."""
+    """Owns every embedding table of a model, on one device or, with
+    ``axis_name``, on a mesh of ``num_shards`` ranks.
+
+    ``placement`` picks each physical table's layout on a mesh: None
+    (every table sharded), "auto" (replicate a table whose full
+    footprint, values and two slot arrays of float32 plus 16 bytes a
+    row, fits ``replicate_threshold`` bytes) or a dict {logical or
+    physical table name: "sharded" | "replicated"}; a coalesced table
+    follows its members where they agree. A sharded table's
+    ``capacity`` is its per-shard capacity (a static table's: its
+    per-shard row count, rounded up)."""
 
     PACKED_PREFIX = "__packed__"
     NUMERIC_PLANE = "__numeric__"
 
-    def __init__(self, columns: Sequence[Any], *, coalesce: bool = False):
+    def __init__(self, columns: Sequence[Any], *, coalesce: bool = False,
+                 axis_name: Optional[str] = None, num_shards: int = 1,
+                 placement: Any = None,
+                 replicate_threshold: int = 4 << 20):
         self.numeric = [c for c in columns if isinstance(c, NumericColumn)]
         self.embedding = [c for c in columns
                           if isinstance(c, EmbeddingColumn)]
+        if num_shards > 1 and axis_name is None:
+            raise ValueError(f"num_shards={num_shards} needs an axis_name "
+                             "(the mesh axis the shards ride on)")
+        self.axis_name = axis_name
+        self.num_shards = int(num_shards)
+        self._placement_req = placement
+        self._replicate_threshold = int(replicate_threshold)
+        self.placement: Dict[str, str] = {}
         self.tables: Dict[str, cfglib.TableConfig] = {}
         self.salts: Dict[str, int] = {}
         self._pack_widths: Optional[Dict[str, list]] = None
@@ -217,7 +253,8 @@ class EmbeddingGroup:
                 self._static_map[name] = (off, tc.capacity)
                 off += tc.capacity
             self._add_table(dataclasses.replace(members[0][1],
-                                                name=phys_name, capacity=off))
+                                                name=phys_name, capacity=off),
+                            members=[n for n, _ in members])
         if not coalesce:
             for name, tc in logical.items():
                 self._phys_of[name] = (name, 0)
@@ -244,11 +281,60 @@ class EmbeddingGroup:
             for i, (name, _) in enumerate(sorted(members)):
                 self._phys_of[name] = (phys_name, _member_salt(i))
             self._add_table(dataclasses.replace(members[0][1],
-                                                name=phys_name, capacity=cap))
+                                                name=phys_name, capacity=cap),
+                            members=[n for n, _ in members])
 
-    def _add_table(self, tc: cfglib.TableConfig):
+    def _resolve_placement(self, tc: cfglib.TableConfig,
+                           members=None) -> str:
+        req = self._placement_req
+        if self.num_shards <= 1 or req is None:
+            return "sharded"
+        if isinstance(req, dict):
+            if tc.name in req:
+                return req[tc.name]
+            votes = {req[m] for m in members or () if m in req}
+            return votes.pop() if len(votes) == 1 else "sharded"
+        if req == "auto":
+            # Replicating costs the full table on every rank; it saves the
+            # table's two all-to-alls and its skew-overflow exposure.
+            bytes_full = tc.capacity * (tc.dim * 4 * 3 + 16)
+            return ("replicated" if bytes_full <= self._replicate_threshold
+                    else "sharded")
+        raise ValueError(f"unknown placement {req!r}")
+
+    def _add_table(self, tc: cfglib.TableConfig, members=None):
+        place = self._resolve_placement(tc, members)
+        if place not in ("sharded", "replicated"):
+            raise ValueError(f"table {tc.name}: unknown placement {place!r}")
+        if self.axis_name is not None and tc.block_num > 1:
+            raise NotImplementedError(
+                f"table {tc.name}: dynamic-dimension tables on a mesh are "
+                "not ported (queue 1 item 13)")
+        if self.num_shards > 1 and place == "sharded":
+            # Static: ceil, so the global slot space capacity * S (slot g
+            # on shard g % S at local row g // S) covers every offset.
+            per = (-(-tc.capacity // self.num_shards) if tc.static_buckets
+                   else tc.capacity // self.num_shards)
+            tc = dataclasses.replace(tc, capacity=max(8, per))
+        self.placement[tc.name] = place
         self.salts[tc.name] = len(self.tables) + 1
         self.tables[tc.name] = tc
+
+    def _is_stacked(self, tname: str) -> bool:
+        """True for a row-sharded table of a mesh group: this rank holds
+        one shard of it (the JAX package's state has a leading [S] axis
+        there, hence the name)."""
+        return (self.axis_name is not None
+                and self.placement[tname] == "sharded")
+
+    def _is_replicated(self, tname: str) -> bool:
+        """True for a table held whole on every rank of a mesh group."""
+        return (self.axis_name is not None
+                and self.placement[tname] == "replicated")
+
+    def placement_plan(self) -> Dict[str, str]:
+        """Resolved placement of every physical table."""
+        return dict(self.placement)
 
     def physical_table_of(self, column: EmbeddingColumn) -> str:
         return self._phys_of[column.table_name][0]
@@ -441,8 +527,13 @@ class EmbeddingGroup:
                 [h.shape[1] for h in his])
 
     # -- state ----------------------------------------------------------
-    def create_state(self, device) -> Dict[str, ev.EVState]:
-        return {n: ev.create(c, device, salt=self.salts[n])
+    def create_state(self, device, shard: int = 0) -> Dict[str, ev.EVState]:
+        """Fresh tables on ``device``; a sharded table's shard ``shard``
+        (the rank's, on a mesh)."""
+        return {n: (sharded.create_shard(c, device, shard, self.num_shards,
+                                         salt=self.salts[n])
+                    if self._is_stacked(n)
+                    else ev.create(c, device, salt=self.salts[n]))
                 for n, c in self.tables.items()}
 
     def init_optimizer(self, opt, device) -> Dict[str, Any]:
@@ -450,33 +541,98 @@ class EmbeddingGroup:
         return {n: opt.init(c, device) for n, c in self.tables.items()}
 
     # -- training ---------------------------------------------------------
-    def lookup_train(self, states, batch, global_step: ev.Step):
+    def _check_mesh(self, mesh):
+        if (mesh is None) != (self.axis_name is None):
+            raise ValueError(
+                "a group built with axis_name looks up on a mesh, and "
+                f"only such a group does (axis_name={self.axis_name!r}, "
+                f"mesh={mesh!r})")
+        if mesh is not None and (mesh.size != self.num_shards
+                                 or mesh.axis_name != self.axis_name):
+            raise ValueError(f"{mesh!r} does not match the group's "
+                             f"{self.num_shards} shards on axis "
+                             f"{self.axis_name!r}")
+
+    def _table_lookup(self, tname, state, ids_hi, ids_lo, global_step,
+                      budget, mesh):
+        """One physical table's training lookup under its placement:
+        ``(state, lk, inverse, mask, routing, n_overflow)``; a
+        replicated table drops no id."""
+        cfg = self.tables[tname]
+        salt = self.salts[tname]
+        if self._is_stacked(tname):
+            if cfg.static_buckets:
+                state, sbl = sharded.bag_lookup_train_static(
+                    cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
+                    budget=budget)
+            else:
+                state, sbl = sharded.bag_lookup_train(
+                    cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
+                    salt=salt)
+            r = sbl.routing
+            return state, sbl.lk, r.inverse, r.mask, r, r.n_overflow
+        if self._is_replicated(tname):
+            if cfg.static_buckets:
+                state, (lk, r) = sharded.bag_lookup_train_replicated_static(
+                    cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
+                    budget=budget)
+            else:
+                state, (lk, r) = sharded.bag_lookup_train_replicated(
+                    cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
+                    salt=salt)
+            return state, lk, r.inverse, r.mask, r, torch.zeros(
+                (), dtype=torch.int32, device=ids_hi.device)
+        state, bl = lkup.bag_lookup_train(
+            cfg, state, ids_hi, ids_lo, global_step, salt=salt,
+            unique_budget=budget)
+        return state, bl.lk, bl.inverse, bl.mask, None, bl.n_overflow
+
+    def lookup_train(self, states, batch, global_step: ev.Step, mesh=None):
         """Returns ``(states, GroupLookup)``; the tables of ``states``
-        are updated in place (inserts, row init, metadata)."""
+        are updated in place (inserts, row init, metadata). A mesh group
+        takes its ``mesh`` (``parallel.mesh.Mesh``); ``states`` and
+        ``batch`` are then this rank's."""
+        self._check_mesh(mesh)
         lks: Dict[str, ev.LookupResult] = {}
         cols: Dict[str, ColumnLookup] = {}
         budget_overflow: Dict[str, torch.Tensor] = {}
         for tname, tcols in self._columns_by_table().items():
-            cfg = self.tables[tname]
             ids_hi, ids_lo, widths = self._packed_view(batch, tname, tcols)
             budget = self._unique_budget(tcols, widths, ids_hi.shape)
-            states[tname], bl = lkup.bag_lookup_train(
-                cfg, states[tname], ids_hi, ids_lo, global_step,
-                salt=self.salts[tname], unique_budget=budget)
-            lks[tname] = bl.lk
-            budget_overflow[tname] = bl.n_overflow
+            (states[tname], lks[tname], inverse, mask, routing,
+             budget_overflow[tname]) = self._table_lookup(
+                tname, states[tname], ids_hi, ids_lo, global_step, budget,
+                mesh)
             off = 0
             for c, w in zip(tcols, widths):
                 cols[c.name] = ColumnLookup(
                     column=c, table_name=tname,
-                    inverse=bl.inverse[:, off:off + w],
-                    mask=bl.mask[:, off:off + w])
+                    inverse=inverse[:, off:off + w],
+                    mask=mask[:, off:off + w], routing=routing)
                 off += w
         return states, GroupLookup(lks=lks, columns=cols,
-                                   budget_overflow=budget_overflow)
+                                   budget_overflow=budget_overflow,
+                                   mesh=mesh)
 
     @staticmethod
-    def _occurrences(gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+    def _local_rows(gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+        """Per table, the rows this rank's occurrences index: the
+        lookup's own rows, a replicated table's slice of the union, or a
+        sharded table's rows exchanged back from their owners (the
+        differentiable return exchange)."""
+        routing = {cl.table_name: cl.routing for cl in gl.columns.values()}
+        out = {}
+        for tname, r in rows.items():
+            rt = routing.get(tname)
+            if isinstance(rt, sharded.Routing):
+                out[tname] = sharded.local_rows(r, rt, gl.mesh)
+            elif isinstance(rt, sharded.RepRouting):
+                out[tname] = r[rt.union_of_local]
+            else:
+                out[tname] = r
+        return out
+
+    def _occurrences(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
         """Per physical table: ``(items, occ, msk)`` with ``items`` its
         ``(column name, ColumnLookup)`` pairs, ``occ`` the masked rows of
         every occurrence ``[B, L_total, dim]`` (one gather per table,
@@ -484,6 +640,7 @@ class EmbeddingGroup:
         by_tbl: Dict[str, list] = {}
         for cname, cl in gl.columns.items():
             by_tbl.setdefault(cl.table_name, []).append((cname, cl))
+        rows = self._local_rows(gl, rows)
         for tname, items in by_tbl.items():
             r = rows[tname]
             inv = torch.cat([cl.inverse for _, cl in items], dim=1)
@@ -532,7 +689,11 @@ class EmbeddingGroup:
                         global_step: ev.Step,
                         lr=None):
         """Sparse-apply each table's row gradients, in place. Returns
-        ``(slot_states, states)``."""
+        ``(slot_states, states)``. On a mesh a sharded table's apply
+        runs on this rank's shard, with the gradients the return
+        exchange sent back to the owner; a replicated table's takes the
+        gradient summed over the ranks, so every replica applies the
+        same update."""
         for tname, g in grad_rows.items():
             st = states[tname]
             slot_states[tname], st.values = opt.apply(
@@ -542,7 +703,8 @@ class EmbeddingGroup:
 
     def shrink(self, states, global_step: int):
         """Checkpoint-time eviction over every table, in place
-        (``variable.shrink``); returns ``states``."""
+        (``variable.shrink``; on a mesh, this rank's shards); returns
+        ``states``."""
         for tname, cfg in self.tables.items():
             states[tname] = ev.shrink(cfg, states[tname], global_step)
         return states
@@ -565,8 +727,10 @@ class EmbeddingGroup:
 
     @staticmethod
     def overflow_total(gl: GroupLookup) -> torch.Tensor:
-        """Ids dropped this step by the tables' unique budgets (0 in
-        exact configurations): they read defaults and get no update."""
+        """Ids dropped this step by the tables' unique budgets or, on a
+        mesh, by the sharded exchange's capacity factor (0 in exact
+        configurations): they read defaults and get no update. This
+        rank's count; the train step sums it over the ranks."""
         return sum(gl.budget_overflow.values())
 
     def numeric_features(self, batch):

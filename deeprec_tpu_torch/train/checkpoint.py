@@ -20,6 +20,17 @@ again. A static hash-bucket table is saved in full on every save,
 incremental ones included, keyed by row index. The JAX package and the
 port read each other's checkpoints, optimizer state included.
 
+On a mesh (``CheckpointManager(..., mesh=mesh)``) each rank writes
+``table-<name>-s<rank>.npz`` for its shard of every sharded table (a
+static shard keyed by its global slots, ``local_row * S + rank``), and
+rank 0 writes the replicated tables, ``dense.npz``, ``aux.json``,
+``meta.json`` (``num_shards``, ``table_shards``) and the tombstones,
+gathered from every rank into the ``s0`` file, as the JAX package
+lays them out. Rank 0 makes the staging directory and renames it into
+place, with barriers between. A restore merges every saved shard and
+keeps this rank's partition (``variable.import_arrays``), so a
+checkpoint of either package restores at any shard count.
+
 Restore fills what the template state carries: a template without
 optimizer state (serving) skips the ``slot/*``, ``scalar/*`` and
 ``dense_opt`` leaves. A delta's ``bloom`` replaces the counters; its
@@ -120,13 +131,17 @@ def _live_rows(cfg, state: ev.EVState):
 
 
 def _export_table(cfg, state: ev.EVState, slots: Dict[str, torch.Tensor],
-                  min_version: Optional[int]) -> Dict[str, np.ndarray]:
+                  min_version: Optional[int], partition_id: int = 0,
+                  partition_num: int = 1) -> Dict[str, np.ndarray]:
     """Live rows with their slot rows (all, or touched since
     ``min_version`` where the table records versions; otherwise, and
     for a static table always, a delta is a full dump, as in the JAX
-    package), and the scalar slots."""
+    package), and the scalar slots. A static shard's keys are its global
+    slots ``local_row * partition_num + partition_id``."""
     out = ev.export_arrays(cfg, state)
     out.pop("bloom", None)
+    if cfg.static_buckets:
+        out["keys"] = out["keys"] * partition_num + partition_id
     rows = _row_aligned(cfg, slots)
     if rows:
         idx = _live_rows(cfg, state)
@@ -173,10 +188,13 @@ def _set_scalars(slots: Dict[str, torch.Tensor],
 class CheckpointManager:
     """Save/restore ``TrainState``s of ``group`` under ``directory``."""
 
-    def __init__(self, directory: str, group: EmbeddingGroup, keep: int = 3):
+    def __init__(self, directory: str, group: EmbeddingGroup, keep: int = 3,
+                 mesh=None):
         self.dir = directory
         self.group = group
         self.keep = keep
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
         # Keys evicted by ``shrink_tables`` since the last save, per
         # table: the next incremental save writes them as tombstones, so
         # a full + delta restore does not bring them back.
@@ -185,7 +203,13 @@ class CheckpointManager:
         # name -> (get_state, set_state), JSON-serializable state.
         self._aux: Dict[str, tuple[Callable[[], Any],
                                    Callable[[Any], None]]] = {}
-        os.makedirs(directory, exist_ok=True)
+        if self.rank == 0:
+            os.makedirs(directory, exist_ok=True)
+        self._barrier()
+
+    def _barrier(self):
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def register_aux(self, name: str, get_state: Callable[[], Any],
                      set_state: Callable[[Any], None]):
@@ -200,8 +224,9 @@ class CheckpointManager:
         """Checkpoint-time eviction (``group.shrink``, in place, at
         ``global_step``, by default the state's step) with every
         evicted key journaled for the next incremental save's
-        tombstones. Use it, not a bare ``group.shrink``, whenever
-        incremental checkpoints are written. Returns ``ts``."""
+        tombstones (on a mesh, each rank journals its shards). Use it,
+        not a bare ``group.shrink``, whenever incremental checkpoints
+        are written. Returns ``ts``."""
         step = int(ts.step) if global_step is None else int(global_step)
         tables = self.group.tables
         before = {t: _live_keys(c, ts.ev[t]) for t, c in tables.items()}
@@ -221,44 +246,66 @@ class CheckpointManager:
     def save(self, ts: TrainState, *, incremental: bool = False,
              since_step: Optional[int] = None) -> str:
         """Write a full (default) or incremental checkpoint at the
-        state's current step."""
+        state's current step (on a mesh: every rank calls it)."""
         step = int(ts.step)
         kind = "incr" if incremental else "full"
         path = os.path.join(self.dir, f"{kind}-{step}")
         tmp = path + ".tmp"
-        os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(tmp, "dense.npz"), **_dense_leaves(ts))
+        lead = self.rank == 0
+        if lead:
+            os.makedirs(tmp, exist_ok=True)
+            np.savez(os.path.join(tmp, "dense.npz"), **_dense_leaves(ts))
+        self._barrier()
         min_version = since_step if incremental else None
-        for tname, cfg in self.group.tables.items():
-            arrs = _export_table(cfg, ts.ev[tname],
-                                 ts.slots.get(tname, {}), min_version)
+        group = self.group
+        for tname, cfg in group.tables.items():
+            stacked = group._is_stacked(tname)
+            if not (stacked or lead):
+                continue
+            si, n_sh = ((self.rank, group.num_shards) if stacked
+                        else (0, 1))
+            arrs = _export_table(cfg, ts.ev[tname], ts.slots.get(tname, {}),
+                                 min_version, si, n_sh)
             if incremental:
-                # Journaled evictions minus keys inserted again since.
+                # Journaled evictions minus keys inserted again since. A
+                # key lives on its owner only, so each shard's own
+                # difference is its part of the table's.
                 journal = np.fromiter(self._tombstones.get(tname, ()),
                                       np.int64)
-                arrs["tombstones"] = np.setdiff1d(
-                    journal, _live_keys(cfg, ts.ev[tname]))
-            np.savez(os.path.join(tmp, f"table-{tname}-s0.npz"), **arrs)
-        if self._aux:
-            with open(os.path.join(tmp, "aux.json"), "w") as f:
-                json.dump({n: get() for n, (get, _) in self._aux.items()}, f)
-        meta = {
-            "step": step,
-            "kind": kind,
-            "since_step": since_step,
-            "num_shards": 1,
-            "table_shards": {t: 1 for t in self.group.tables},
-            "tables": sorted(self.group.tables),
-        }
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.rename(tmp, path)
+                tombs = np.setdiff1d(journal, _live_keys(cfg, ts.ev[tname]))
+                if stacked and self.mesh is not None:
+                    tombs = np.unique(np.concatenate(
+                        self.mesh.all_gather_object(tombs)))
+                if si == 0:
+                    arrs["tombstones"] = tombs
+            np.savez(os.path.join(tmp, f"table-{tname}-s{si}.npz"), **arrs)
+        if lead:
+            if self._aux:
+                with open(os.path.join(tmp, "aux.json"), "w") as f:
+                    json.dump({n: get() for n, (get, _) in self._aux.items()},
+                              f)
+            meta = {
+                "step": step,
+                "kind": kind,
+                "since_step": since_step,
+                "num_shards": group.num_shards,
+                "table_shards": {t: (group.num_shards
+                                     if group._is_stacked(t) else 1)
+                                 for t in group.tables},
+                "tables": sorted(group.tables),
+            }
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+        self._barrier()
+        if lead:
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+            self._gc()
+        self._barrier()
         # The snapshot or delta just written holds every journaled
         # eviction.
         self._tombstones.clear()
-        self._gc()
         return path
 
     def _gc(self):
@@ -286,7 +333,8 @@ class CheckpointManager:
         device of ``ts_template``'s params, and into copies of the
         template's optimizer slots (slot rows of keys the checkpoint
         does not hold keep the template's values, as in the JAX
-        package)."""
+        package). On a mesh, this rank's shards, whatever shard count
+        wrote the checkpoint."""
         fulls = self._steps("full")
         if step is not None:
             fulls = [s for s in fulls if s <= step]
@@ -295,7 +343,8 @@ class CheckpointManager:
         base = fulls[-1]
         device = next(iter(ts_template.params.values())).device
         ts = self._apply(ts_template.replace(
-            ev=self.group.create_state(device)), f"full-{base}", full=True)
+            ev=self.group.create_state(device, self.rank)), f"full-{base}",
+            full=True)
         incrs = [s for s in self._steps("incr")
                  if s > base and (step is None or s <= step)]
         for s in incrs:
@@ -344,6 +393,8 @@ class CheckpointManager:
         for tname, cfg in self.group.tables.items():
             n_saved = meta.get("table_shards", {}).get(tname,
                                                        meta["num_shards"])
+            pid, pnum = ((self.rank, self.group.num_shards)
+                         if self.group._is_stacked(tname) else (0, 1))
             slots = new_slots.get(tname, {})
             rows = {f"['{k}']": v for k, v in _row_aligned(cfg, slots).items()}
             wanted = ("keys", "values", "freqs", "versions",
@@ -361,7 +412,7 @@ class CheckpointManager:
                     for k in z.files:
                         if k.startswith("scalar/"):
                             scalars[k[len("scalar/"):]] = z[k]
-                    if "bloom" in z.files:
+                    if "bloom" in z.files and si == pid:
                         bloom = z["bloom"]
                     if "tombstones" in z.files:
                         tombs = z["tombstones"]
@@ -370,11 +421,13 @@ class CheckpointManager:
             st = new_ev[tname]
             ev.import_arrays(cfg, st,
                              {k: np.concatenate(v) for k, v in merged.items()},
+                             partition_id=pid, partition_num=pnum,
                              extra_targets=rows)
             _set_scalars(slots, scalars)
-            if bloom is not None and n_saved == 1:
+            if bloom is not None and n_saved == pnum:
                 # Counters restore only onto the shard count that saved
-                # them, as in the JAX package (here: one shard).
+                # them, as in the JAX package; each shard its own (the
+                # JAX package hands every shard the last file's).
                 st.bloom = torch.from_numpy(np.array(bloom, np.int32)).to(
                     st.bloom.device)
             if tombs is not None and tombs.size:

@@ -1,11 +1,13 @@
 """High-level training driver with hooks.
 
-Port of ``deeprec_tpu/train/estimator.py`` (single device): a train loop
-that owns the training step, runs hooks on a step cadence, and wires
-checkpointing (full and incremental saves, eviction at save time),
-logging, the profiler and the WorkQueue, plus evaluation with the
-streaming AUC. The step updates the state in place (see
-``train.loop.make_train_step``); ``Estimator.ts`` is the live state.
+Port of ``deeprec_tpu/train/estimator.py``: a train loop that owns the
+training step, runs hooks on a step cadence, and wires checkpointing
+(full and incremental saves, eviction at save time), logging, the
+profiler and the WorkQueue, plus evaluation with the streaming AUC. The
+step updates the state in place (see ``train.loop.make_train_step``);
+``Estimator.ts`` is the live state. With ``mesh`` every rank runs an
+Estimator on its local batches: the steps, the checkpoints and the
+evaluation run on the mesh (the AUC over every rank's scores).
 """
 
 from __future__ import annotations
@@ -145,21 +147,22 @@ class Estimator:
                  dense_opt, params: Dict[str, torch.Tensor],
                  micro_batch_num: int = 1,
                  model_dir: Optional[str] = None, work_queue=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.group = group
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
         self.sparse_opt = sparse_opt
         self.dense_opt = dense_opt
         self.device = torch.device(device)
+        self.mesh = mesh
         self.ts = trainlib.create_train_state(group, params, dense_opt,
-                                              sparse_opt, self.device)
+                                              sparse_opt, self.device, mesh)
         self._step_fn = trainlib.make_train_step(
             group, apply_fn, loss_fn, sparse_opt, dense_opt,
-            micro_batch_num=micro_batch_num)
-        self._eval_fn = trainlib.make_eval_step(group, apply_fn)
+            micro_batch_num=micro_batch_num, mesh=mesh)
+        self._eval_fn = trainlib.make_eval_step(group, apply_fn, mesh=mesh)
         self.model_dir = model_dir
-        self.manager = (CheckpointManager(model_dir, group)
+        self.manager = (CheckpointManager(model_dir, group, mesh=mesh)
                         if model_dir else None)
         self.work_queue = work_queue
         if work_queue is not None and self.manager is not None:
@@ -198,15 +201,18 @@ class Estimator:
     def evaluate(self, batches: Iterable[Dict], steps: int,
                  label_key: str = "label") -> Dict[str, float]:
         """Streaming AUC and mean per-batch accuracy over ``steps``
-        batches."""
+        batches (on a mesh: over the ranks' batches taken together)."""
         auc = metricslib.auc_init(device=self.device)
         accs = []
         it = iter(batches)
         for _ in range(steps):
             b = next(it)
-            logits = self._eval_fn(self.ts, b)
-            auc = metricslib.auc_update(auc, logits, b[label_key])
-            accs.append(metricslib.accuracy(logits, b[label_key]))
+            logits, labels = self._eval_fn(self.ts, b), b[label_key]
+            if self.mesh is not None:
+                logits = self.mesh.all_gather(logits)
+                labels = self.mesh.all_gather(labels)
+            auc = metricslib.auc_update(auc, logits, labels)
+            accs.append(metricslib.accuracy(logits, labels))
         total = float(torch.stack(accs).double().sum()) if accs else 0.0
         return {"auc": float(metricslib.auc_result(auc)),
                 "accuracy": total / max(steps, 1)}

@@ -2,9 +2,17 @@
 
 Port of ``TrainState``, ``create_train_state``, ``make_train_step``
 (micro-batches included), ``make_epoch_step``, ``stack_batches`` and
-``make_eval_step`` from ``deeprec_tpu/train/loop.py``, single device
-(``mesh=None``; the combine is ``group.combine`` or a ``combine_fn``
-such as ``group.combine_tables``). Sharded steps are not ported yet.
+``make_eval_step`` from ``deeprec_tpu/train/loop.py`` (the combine is
+``group.combine`` or a ``combine_fn`` such as ``group.combine_tables``).
+
+With ``mesh`` (``parallel.mesh.Mesh``) the train and eval steps run on
+every rank of the mesh, each on its local batch and its shard of each
+sharded table, as the JAX package's ``shard_map`` branches do: the loss
+is divided by ``B_local * S``; the dense gradients and the replicated
+tables' row gradients are summed over the ranks in one all-reduce (the
+sum that JAX's ``shard_map`` autodiff makes for device-invariant
+inputs), so every rank applies the same dense update; the loss and
+``n_overflow`` are summed too. The epoch step on a mesh is not ported.
 
 The JAX package's ``make_epoch_step`` is one ``lax.scan`` over a stacked
 batch pool: no host dispatch between steps. Here, on a CUDA card, the
@@ -22,6 +30,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from deeprec_tpu_torch.embedding import lookup as lkup
+from deeprec_tpu_torch.embedding import sharded as shlib
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.feature_column.feature_column import (
     EmbeddingGroup, SequenceEmbeddingColumn)
@@ -42,12 +51,15 @@ class TrainState:
 
 def create_train_state(group: EmbeddingGroup, params: Dict[str, torch.Tensor],
                        dense_opt=None, sparse_opt=None,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh=None) -> TrainState:
     """Fresh tables on ``device``, with the optimizers' state when they
-    are given (a state that only serves needs neither)."""
+    are given (a state that only serves needs neither). On a ``mesh``
+    the sharded tables are this rank's shards; every rank must pass the
+    same ``params``."""
     params = {k: v.to(device) for k, v in params.items()}
+    shard = 0 if mesh is None else mesh.rank
     return TrainState(
-        params=params, ev=group.create_state(device),
+        params=params, ev=group.create_state(device, shard),
         slots=(group.init_optimizer(sparse_opt, device)
                if sparse_opt is not None else {}),
         dense_opt=dense_opt.init(params) if dense_opt is not None else {})
@@ -79,8 +91,20 @@ def _micro(x, n: int, i: int):
     return x[i * b:(i + 1) * b]
 
 
+def _all_reduce_flat(mesh, tensors) -> None:
+    """Sum ``tensors`` over the ranks in place, one all-reduce a dtype
+    over their concatenation."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = mesh.all_reduce_(torch.cat([t.reshape(-1) for t in ts]))
+        for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(part.view_as(t))
+
+
 def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
-                dense_opt, micro_batch_num: int, combine_fn):
+                dense_opt, micro_batch_num: int, combine_fn, mesh=None):
     """``body(ts, batch, global_step) -> metrics``: one training step on
     ``ts``, in place, with ``global_step`` an int or a 0-dim int32
     tensor on the state's device (``ts.step`` is not touched)."""
@@ -88,16 +112,17 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
         raise ValueError("combine_fn requires micro_batch_num == 1")
     combine = combine_fn if combine_fn is not None else group.combine
     n_mb = micro_batch_num
+    n_ranks = 1 if mesh is None else mesh.size
 
     def grads_of(params, rows, batch, gl):
         out = apply_fn(params, combine(gl, rows), batch)
         per_ex = loss_fn(out, batch)
-        loss = per_ex.sum() / (per_ex.shape[0] * n_mb)
+        loss = per_ex.sum() / (per_ex.shape[0] * n_mb * n_ranks)
         return loss, torch.autograd.grad(
             loss, list(params.values()) + list(rows.values()))
 
     def body(ts: TrainState, batch, gs):
-        states, gl = group.lookup_train(ts.ev, batch, gs)
+        states, gl = group.lookup_train(ts.ev, batch, gs, mesh)
         rows = {t: lk.rows.detach().requires_grad_()
                 for t, lk in gl.lks.items()}
         params = {k: v.detach().requires_grad_()
@@ -123,11 +148,19 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
                     loss = loss + li
                     grads = [a + b for a, b in zip(grads, gi)]
         n_p = len(params)
-        dense_opt.apply(ts.params, dict(zip(params, grads[:n_p])),
-                        ts.dense_opt)
-        group.apply_gradients(sparse_opt, ts.slots, states, gl,
-                              dict(zip(rows, grads[n_p:])), gs)
-        return {"loss": loss.detach(), "n_overflow": group.overflow_total(gl)}
+        dense_g = dict(zip(params, grads[:n_p]))
+        row_g = dict(zip(rows, grads[n_p:]))
+        loss = loss.detach()
+        overflow = group.overflow_total(gl)
+        if mesh is not None:
+            _all_reduce_flat(mesh, list(dense_g.values()) + [
+                g for t, g in row_g.items() if group._is_replicated(t)])
+            tot = mesh.all_reduce_(torch.stack([loss.to(torch.float64),
+                                                overflow.to(torch.float64)]))
+            loss, overflow = tot[0].to(loss.dtype), tot[1].to(torch.int32)
+        dense_opt.apply(ts.params, dense_g, ts.dense_opt)
+        group.apply_gradients(sparse_opt, ts.slots, states, gl, row_g, gs)
+        return {"loss": loss, "n_overflow": overflow}
 
     return body
 
@@ -135,7 +168,7 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
 def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
                     loss_fn: Callable, sparse_opt, dense_opt,
                     micro_batch_num: int = 1,
-                    combine_fn: Optional[Callable] = None):
+                    combine_fn: Optional[Callable] = None, mesh=None):
     """``(TrainState, batch) -> (TrainState, metrics)``: lookup, combine,
     forward, loss ``sum(per_example) / B``, backward into the dense
     params and into each table's unique rows, dense and sparse applies.
@@ -158,9 +191,13 @@ def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
     ``group.combine_tables`` with a matching fused ``apply_fn``
     (``wdl.apply_fn_fused``) to hand the model each table's occurrences
     in one tensor; it requires ``micro_batch_num == 1``.
+
+    ``mesh``: the step runs on each rank of it, on the rank's local
+    batch and state (the module docstring says what is summed); the
+    metrics are the global batch's on every rank.
     """
     body = _train_body(group, apply_fn, loss_fn, sparse_opt, dense_opt,
-                       micro_batch_num, combine_fn)
+                       micro_batch_num, combine_fn, mesh)
 
     def _step(ts: TrainState, batch):
         metrics = body(ts, batch, ts.step)
@@ -309,7 +346,8 @@ class EpochStep:
 def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
                     loss_fn: Callable, sparse_opt, dense_opt,
                     n_epochs: int = 1, micro_batch_num: int = 1,
-                    combine_fn: Optional[Callable] = None) -> EpochStep:
+                    combine_fn: Optional[Callable] = None,
+                    mesh=None) -> EpochStep:
     """Whole passes over a stacked batch pool in one call.
 
     Returns ``epoch(ts, stacked) -> (ts, losses)``, where ``stacked``
@@ -330,26 +368,44 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
     since the graph holds the addresses of the state and the pool; it
     first releases the previous call's graph and its memory pool
     (:meth:`EpochStep.release`). On the CPU it is a loop over the pool.
+    On a ``mesh`` it raises ``NotImplementedError``: capturing NCCL
+    collectives in a CUDA graph is not ported (ROADMAP item 12b).
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_epoch_step on a mesh (NCCL collectives in a captured "
+            "CUDA graph) is not ported (ROADMAP item 12b); use "
+            "make_train_step(..., mesh=mesh)")
     return EpochStep(_train_body(group, apply_fn, loss_fn, sparse_opt,
                                  dense_opt, micro_batch_num, combine_fn),
                      n_epochs)
 
 
 @torch.no_grad()
-def eval_embeddings(group: EmbeddingGroup, ts: TrainState, batch):
+def eval_embeddings(group: EmbeddingGroup, ts: TrainState, batch,
+                    mesh=None):
     """The embedding dict the eval step hands the model: every id
     occurrence looked up on its own (identity ``inverse``), bags
-    combined, sequence columns as ``(rows, mask)``; no mutation."""
+    combined, sequence columns as ``(rows, mask)``; no mutation. On a
+    ``mesh`` a sharded table's ids go to their owners and come back as
+    rows per unique id (``sharded.lookup_rows_infer``, static:
+    ``lookup_rows_infer_static``); a replicated table is read locally."""
+    group._check_mesh(mesh)
     embs = {}
     for tname, tcols in group._columns_by_table().items():
         cfg = group.tables[tname]
         ids_hi, ids_lo, widths = group._packed_view(batch, tname, tcols)
         mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
         B, L = ids_hi.shape
-        rows = ev.lookup(cfg, ts.ev[tname], ids_hi.reshape(-1),
-                         ids_lo.reshape(-1))
-        inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
+        state = ts.ev[tname]
+        if group._is_stacked(tname):
+            infer = (shlib.lookup_rows_infer_static if cfg.static_buckets
+                     else shlib.lookup_rows_infer)
+            rows, inverse, _ = infer(cfg, state, ids_hi, ids_lo, mesh=mesh)
+        else:
+            rows = ev.lookup(cfg, state, ids_hi.reshape(-1),
+                             ids_lo.reshape(-1))
+            inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
         off = 0
         for c, w in zip(tcols, widths):
             inv_c, m_c = inverse[:, off:off + w], mask[:, off:off + w]
@@ -363,12 +419,15 @@ def eval_embeddings(group: EmbeddingGroup, ts: TrainState, batch):
     return embs
 
 
-def make_eval_step(group: EmbeddingGroup, apply_fn: Callable):
+def make_eval_step(group: EmbeddingGroup, apply_fn: Callable, mesh=None):
     """``(TrainState, batch) -> model outputs``, no mutation, over
-    :func:`eval_embeddings`, as the JAX package's unsharded eval."""
+    :func:`eval_embeddings`, as the JAX package's eval. On a ``mesh``
+    each rank scores its local batch: its outputs are the rank's slice
+    of the JAX package's global ones."""
 
     @torch.no_grad()
     def _eval(ts: TrainState, batch):
-        return apply_fn(ts.params, eval_embeddings(group, ts, batch), batch)
+        return apply_fn(ts.params, eval_embeddings(group, ts, batch, mesh),
+                        batch)
 
     return _eval

@@ -96,6 +96,34 @@ def shard_of(hi, lo, num_shards: int):
     return (hash_mix(hi, lo, salt=1) % num_shards).to(torch.int32)
 
 
+def _fmix32_np(h: np.ndarray) -> np.ndarray:
+    """numpy mirror of :func:`_fmix32` (uint32 lanes, wrapping)."""
+    with np.errstate(over="ignore"):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+
+
+def hash_mix_np(hi: np.ndarray, lo: np.ndarray, salt: int = 0) -> np.ndarray:
+    """Host mirror of :func:`hash_mix`, uint32, bit-identical to it."""
+    hi_u = np.asarray(hi, np.int32).view(np.uint32)
+    lo_u = np.asarray(lo, np.int32).view(np.uint32)
+    with np.errstate(over="ignore"):
+        h = lo_u ^ (hi_u * np.uint32(0x9E3779B9))
+        h = h ^ np.uint32((salt * 0x9E3779B9) & _MASK32)
+    return _fmix32_np(h)
+
+
+def shard_of_np(ids: np.ndarray, num_shards: int) -> np.ndarray:
+    """Owner shard of int64 ids on the host, as :func:`shard_of` gives
+    it on the device (checkpoint restore onto S shards)."""
+    hi, lo = split_ids(np.asarray(ids, np.int64))
+    return (hash_mix_np(hi, lo, salt=1) % np.uint32(num_shards)).astype(
+        np.int32)
+
+
 def mod_of(hi, lo, m: int):
     """Exact ``id mod m`` of the uint64 value ``hi*2^32 + lo``, int32.
 

@@ -258,6 +258,9 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.feature_column.feature_column, "
         "deeprec_tpu_torch.embedding.lookup, "
         "deeprec_tpu_torch.embedding.variable, "
+        "deeprec_tpu_torch.embedding.sharded, "
+        "deeprec_tpu_torch.parallel.mesh, "
+        "deeprec_tpu_torch.parallel.multihost, "
         "deeprec_tpu_torch.train.estimator, deeprec_tpu_torch.train.metrics, "
         "deeprec_tpu_torch.data.work_queue, deeprec_tpu_torch.ops.fused, "
         "deeprec_tpu_torch.layers.core, deeprec_tpu_torch.models.deepfm, "

@@ -1,0 +1,309 @@
+"""Ranks of the mesh tests, spawned as gloo process groups on the CPU.
+
+``launch(case, world, tmp, **kw)`` starts ``world`` processes
+(``torch.multiprocessing.spawn``); rank ``r`` joins a gloo group through
+``parallel.multihost.initialize`` (a ``FileStore`` under ``tmp``) and
+runs ``CASES[case](mesh, tmp, **kw)``, which writes its results to
+``tmp/<case>-r<r>.npz``. A rank that raises fails the launch. Shared by
+``tests/test_torch_sharded.py`` and ``tests/test_torch_mesh_train.py``;
+imports torch, numpy and the port only, no JAX.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+# The model of ``__graft_entry__._build``, a global batch of 64 rows.
+B_GLOBAL = 64
+CAPACITY = 1 << 14
+DIM = 16
+HIDDEN = (256, 128, 64)
+VOCAB = 5000
+# The graft's 26 x 16-wide deep table (coalesced: 2**19 rows, 109 MB at
+# full footprint) stays sharded; its dim-1 wide table (14.7 MB) is
+# replicated.
+REPLICATE_THRESHOLD = 16 << 20
+LR = 0.05
+
+
+def launch(case: str, world: int, tmp, **kw):
+    tmp = str(tmp)
+    store = os.path.join(tmp, f"store-{case}-{world}")
+    mp.spawn(_entry, args=(case, world, tmp, store, kw), nprocs=world,
+             join=True)
+
+
+def result(case: str, tmp, rank: int) -> dict:
+    with np.load(os.path.join(str(tmp), f"{case}-r{rank}.npz"),
+                 allow_pickle=False) as z:
+        return dict(z)
+
+
+def _entry(rank, case, world, tmp, store, kw):
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    torch.set_num_threads(1)
+    multihost.initialize(init_method=f"file://{store}", rank=rank,
+                         world_size=world, device="cpu")
+    try:
+        out = CASES[case](meshlib.data_mesh(world, device="cpu"), tmp, **kw)
+        np.savez(os.path.join(tmp, f"{case}-r{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the WDL model at the graft's sizes --------------------------------------
+
+def wdl_parts(num_shards=None, placement="auto"):
+    """(group, model, apply_fn, loss_fn, sparse_opt, dense_opt) of the
+    graft WDL; with ``num_shards``, a mesh group of that many shards."""
+    from deeprec_tpu_torch.feature_column.feature_column import (
+        EmbeddingGroup)
+    from deeprec_tpu_torch.layers.core import init_dense
+    from deeprec_tpu_torch.models import wdl
+    from deeprec_tpu_torch.optimizers import dense as dense_lib
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import losses
+
+    cols = wdl.criteo_columns(embedding_dim=DIM, capacity=CAPACITY)
+    mesh_kw = ({} if num_shards is None else dict(
+        axis_name="data", num_shards=num_shards, placement=placement,
+        replicate_threshold=REPLICATE_THRESHOLD))
+    group = EmbeddingGroup(cols, coalesce=True, **mesh_kw)
+    model = wdl.WDL(wdl.input_width(group), hidden=HIDDEN,
+                    dtype=torch.float32, device="cpu")
+    init_dense(model, torch.Generator().manual_seed(0))
+    return (group, model, wdl.apply_fn(model, group),
+            lambda out, b: losses.bce_with_logits(out, b["label"]),
+            sparse_lib.SparseAdagrad(LR), dense_lib.Adagrad(LR))
+
+
+def global_batches(n: int, seed: int = 0):
+    """``n`` raw global batches of the graft's synthetic Criteo stream."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    data = SyntheticCriteo(B_GLOBAL, vocab=VOCAB, seed=seed)
+    return [data.next_batch_np(wide=True) for _ in range(n)]
+
+
+def local_slice(raw: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s rows of a raw global batch."""
+    b = B_GLOBAL // world
+    return {k: np.asarray(v)[rank * b:(rank + 1) * b] for k, v in raw.items()}
+
+
+def table_arrays(group, states, prefix: str = "") -> dict:
+    """Every table's live keys and rows (``variable.export_arrays``)."""
+    from deeprec_tpu_torch.embedding import variable as ev
+    out = {}
+    for t, cfg in group.tables.items():
+        snap = ev.export_arrays(cfg, states[t])
+        out[f"{prefix}keys/{t}"] = snap["keys"]
+        out[f"{prefix}values/{t}"] = snap["values"]
+    return out
+
+
+def train_wdl(mesh, tmp, steps: int, micro: int, ckpt=None, eval_seed=1):
+    """The graft WDL on the mesh: ``steps`` steps of ``micro``
+    micro-batches over the global stream, each rank on its rows; then
+    the sharded eval of a held-out batch and, with ``ckpt``, a save."""
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    group, model, afn, loss_fn, sopt, dopt = wdl_parts(mesh.size)
+    ts = trainlib.create_train_state(group, model.state_dict(), dopt, sopt,
+                                     "cpu", mesh)
+    step = trainlib.make_train_step(group, afn, loss_fn, sopt, dopt,
+                                    micro_batch_num=micro, mesh=mesh)
+    losses, overflow = [], []
+    for raw in global_batches(steps):
+        ts, m = step(ts, group.pack_batch_np(
+            local_slice(raw, mesh.rank, mesh.size), "cpu"))
+        losses.append(float(m["loss"]))
+        overflow.append(int(m["n_overflow"]))
+    ev_raw = local_slice(global_batches(1, eval_seed)[0], mesh.rank,
+                         mesh.size)
+    logits = trainlib.make_eval_step(group, afn, mesh)(
+        ts, group.pack_batch_np(ev_raw, "cpu"))
+    if ckpt is not None:
+        ckptlib.CheckpointManager(ckpt, group, mesh=mesh).save(ts)
+    return dict(table_arrays(group, ts.ev), loss=np.array(losses),
+                n_overflow=np.array(overflow), logits=logits.numpy(),
+                placement=np.array(sorted(group.placement_plan().items())))
+
+
+def restore_eval(mesh, tmp, ckpts, eval_seed=1):
+    """Restore each checkpoint of ``ckpts`` onto the mesh and score a
+    held-out batch; results under ``logits/<i>``, ``step/<i>`` and
+    ``keys<i>/<table>``."""
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    group, model, afn, _, sopt, dopt = wdl_parts(mesh.size)
+    tmpl = trainlib.create_train_state(group, model.state_dict(), dopt,
+                                       sopt, "cpu", mesh)
+    ev_raw = local_slice(global_batches(1, eval_seed)[0], mesh.rank,
+                         mesh.size)
+    out = {}
+    for i, ckpt in enumerate(ckpts):
+        ts = ckptlib.CheckpointManager(ckpt, group, mesh=mesh).restore(tmpl)
+        logits = trainlib.make_eval_step(group, afn, mesh)(
+            ts, group.pack_batch_np(ev_raw, "cpu"))
+        out.update({k.replace("keys/", f"keys{i}/"): v for k, v in
+                    table_arrays(group, ts.ev).items() if "keys/" in k})
+        out[f"logits/{i}"] = logits.numpy()
+        out[f"step/{i}"] = np.array(int(ts.step))
+    return out
+
+
+# -- function-level parity of embedding/sharded.py (S = 2) -------------------
+
+PARITY_B = 16      # global rows a step
+PARITY_L = 3
+PARITY_DIM = 4
+PARITY_STEPS = 2
+PARITY_LR = 0.3
+# Per-shard capacity (a replicated table's whole capacity), placement.
+KINDS = {
+    "ev": dict(capacity=64, static=False, sharded=True),
+    "static": dict(capacity=32, static=True, sharded=True),
+    "replicated": dict(capacity=128, static=False, sharded=False),
+    "replicated_static": dict(capacity=64, static=True, sharded=False),
+}
+EV_FIELDS = ("key_rows", "values", "freqs", "versions", "default_bank",
+             "bloom")
+
+
+def kind_config(cfglib, kind: str):
+    """The kind's table config in ``cfglib`` (either package's
+    ``config``)."""
+    k = KINDS[kind]
+    return cfglib.TableConfig(name="t", dim=PARITY_DIM,
+                              capacity=k["capacity"],
+                              initializer="truncated_normal",
+                              combiner="sum", static_buckets=k["static"])
+
+
+def parity_batches(kind: str, world: int = 2):
+    """``[(ids int64 [B, L], target float32 [B])]`` a step: EV ids of a
+    40-id vocabulary, or a static table's global slots, ~20 % padding."""
+    from deeprec_tpu_torch.utils import keys as keylib
+    k = KINDS[kind]
+    n_ids = k["capacity"] * (world if k["sharded"] else 1) if k["static"] \
+        else 40
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(PARITY_STEPS):
+        ids = rng.integers(0, n_ids, size=(PARITY_B, PARITY_L))
+        ids[rng.random((PARITY_B, PARITY_L)) < 0.2] = keylib.EMPTY_ID
+        out.append((ids.astype(np.int64),
+                    rng.normal(size=(PARITY_B,)).astype(np.float32)))
+    return out
+
+
+def sharded_parity(mesh, tmp):
+    """Every kind of ``KINDS`` for ``PARITY_STEPS`` steps from the
+    initial states in ``tmp/parity_inputs.npz`` (``init/<kind>/<field>``,
+    a sharded kind's with a leading shard axis): lookup, bag-sum loss
+    against the target, row gradients, ``SparseAdagrad``; the routing
+    integers of each step, the losses, the sharded kinds' inference
+    embeddings and the final state."""
+    from deeprec_tpu_torch import config as cfglib
+    from deeprec_tpu_torch import convert
+    from deeprec_tpu_torch.embedding import lookup as lkup
+    from deeprec_tpu_torch.embedding import sharded
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.utils import keys as keylib
+    with np.load(os.path.join(tmp, "parity_inputs.npz")) as z:
+        inputs = dict(z)
+    r, S = mesh.rank, mesh.size
+    bl = PARITY_B // S
+    opt = sparse_lib.SparseAdagrad(PARITY_LR)
+    out = {}
+    for kind, k in KINDS.items():
+        cfg = kind_config(cfglib, kind)
+        init = {f: inputs[f"init/{kind}/{f}"] for f in EV_FIELDS}
+        state = convert.ev_state_from_numpy(
+            convert.shard_of_stacked(init, r) if k["sharded"] else init,
+            "cpu")
+        slots = opt.init(cfg, "cpu")
+        for step, (ids, target) in enumerate(parity_batches(kind, S)):
+            hi, lo = keylib.split_ids(ids[r * bl:(r + 1) * bl].reshape(-1))
+            hi = torch.from_numpy(hi).reshape(bl, PARITY_L)
+            lo = torch.from_numpy(lo).reshape(bl, PARITY_L)
+            tgt = torch.from_numpy(target[r * bl:(r + 1) * bl])
+            pre = f"{kind}/{step}/"
+            if k["sharded"]:
+                fn = (sharded.bag_lookup_train_static if k["static"]
+                      else sharded.bag_lookup_train)
+                state, sbl = fn(cfg, state, hi, lo, step, mesh=mesh)
+                lk, rt = sbl.lk, sbl.routing
+                out.update({pre + "dest": rt.dest.numpy(),
+                            pre + "owner_inverse": rt.owner_inverse.numpy(),
+                            pre + "counts": sbl.counts.numpy(),
+                            pre + "n_overflow": rt.n_overflow.numpy()})
+                emb_of = lambda rows: sharded.combine(  # noqa: E731
+                    rows, sbl, "sum", mesh=mesh)
+            else:
+                fn = (sharded.bag_lookup_train_replicated_static
+                      if k["static"] else sharded.bag_lookup_train_replicated)
+                state, (lk, rt) = fn(cfg, state, hi, lo, step, mesh=mesh)
+                out[pre + "union_of_local"] = rt.union_of_local.numpy()
+                emb_of = lambda rows: sharded.combine_replicated(  # noqa
+                    rows, rt, "sum")
+            out.update({pre + "slots": lk.slots.numpy(),
+                        pre + "is_new": lk.is_new.numpy()})
+            rows = lk.rows.detach().requires_grad_()
+            loss = ((emb_of(rows).sum(dim=1) - tgt) ** 2).sum()
+            (g,) = torch.autograd.grad(loss, [rows])
+            if not k["sharded"]:
+                mesh.all_reduce_(g)
+            out[pre + "loss"] = mesh.all_reduce_(loss.detach()).numpy()
+            slots, state.values = opt.apply(cfg, slots, state.values, lk, g,
+                                            step)
+        if k["sharded"]:
+            ids = parity_batches(kind, S)[-1][0][r * bl:(r + 1) * bl]
+            hi, lo = (torch.from_numpy(a).reshape(bl, PARITY_L)
+                      for a in keylib.split_ids(ids.reshape(-1)))
+            if k["static"]:
+                rows, inv, msk = sharded.lookup_rows_infer_static(
+                    cfg, state, hi, lo, mesh=mesh)
+                emb = lkup.combine_bags(rows, inv, msk, "sum")
+            else:
+                emb = sharded.bag_lookup_infer(cfg, state, hi, lo, mesh=mesh)
+            out[f"{kind}/infer"] = emb.numpy()
+        for f, v in convert.ev_state_to_numpy(state).items():
+            out[f"{kind}/final/{f}"] = v
+        out[f"{kind}/final/accum"] = slots["accum"].numpy()
+    return out
+
+
+def mesh_suite(mesh, tmp, steps: int, micro: int, ckpt_s2: str,
+               restore: list):
+    """On 4 ranks: :func:`train_wdl` at S = 4 (``s4/``), then on the
+    subgroup of ranks 0 and 1, at S = 2, :func:`train_wdl` saving to
+    ``ckpt_s2`` (``s2/``) and :func:`restore_eval` of ``restore``
+    (``restore/``). One launch: every spawned rank costs a start-up."""
+    from deeprec_tpu_torch.parallel.mesh import Mesh
+    out = {"s4/" + k: v for k, v in
+           train_wdl(mesh, tmp, steps, micro).items()}
+    pair = dist.new_group([0, 1])
+    if mesh.rank < 2:
+        m2 = Mesh(pair, device="cpu")
+        out.update({"s2/" + k: v for k, v in
+                    train_wdl(m2, tmp, steps, micro, ckpt=ckpt_s2).items()})
+        out.update({"restore/" + k: v for k, v in
+                    restore_eval(m2, tmp, restore).items()})
+    dist.barrier()
+    return out
+
+
+def split_prefix(res: dict, prefix: str) -> dict:
+    """The entries of ``res`` under ``prefix``, without it."""
+    return {k[len(prefix):]: v for k, v in res.items()
+            if k.startswith(prefix)}
+
+
+CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity}

@@ -8,6 +8,7 @@ Run from the repository root on one CUDA card:
         [--row headline|static|dim16|e2e] [--fresh] [--warmup 10]
         [--trace build/train_trace_torch.json] [--graph]
     python3 tools/profile_train_torch.py --zoo din [--steps 20] ...
+    python3 tools/profile_train_torch.py --sharded [--steps 20] ...
 
 It builds a WDL row of ``deeprec_tpu_torch.bench`` (by default the
 headline: reference shapes, B = 16,384, ``SparseAdagrad`` or
@@ -22,6 +23,9 @@ a batch no step has seen, as the e2e row's steps do. ``--zoo MODEL``
 takes a model of ``tools/train_zoo_torch.py`` instead (its full-width
 columns and towers, bf16, B = 4,096, its sparse Adagrad and dense
 Adam, the batches of its synthetic stream; the step is the Estimator's).
+``--sharded`` takes the headline with its tables row-sharded over a
+one-rank NCCL mesh (``embedding/sharded.py``; the exchange sends to
+itself), its step ``make_train_step(..., mesh=)``.
 After ``--warmup`` steps it:
 
 1. times ``--steps`` steps with the host clock, fenced by
@@ -40,7 +44,9 @@ After ``--warmup`` steps it:
    compaction, row init, metadata; for a static table
    ``lookup_train_static``), combine, towers forward (the model's
    ``apply_fn``), backward (``torch.autograd.grad``), dense Adagrad and
-   the sparse apply (K2 or K3). Each device event is charged to the
+   the sparse apply (K2 or K3); on a mesh also exchange (``Mesh.
+   all_to_all``), all-reduce and the owner side's lookup
+   (``lookup_train``). Each device event is charged to the
    innermost span whose host interval holds its launch (the backward's
    launches come from autograd's own thread while the step waits inside
    its span); launches outside every span go to "other". It prints the
@@ -104,9 +110,13 @@ def stage_spans(opt_name: str):
     from deeprec_tpu_torch.feature_column import feature_column
     from deeprec_tpu_torch.ops.kernels import gather, sparse_apply
     from deeprec_tpu_torch.optimizers import dense
+    from deeprec_tpu_torch.parallel import mesh
     targets = [(hash_table, "find_or_insert", "probe"),
                (gather, "gather_rows", "fetch"),
                (variable, "lookup_train_occ", "lookup"),
+               (variable, "lookup_train", "lookup"),
+               (mesh.Mesh, "all_to_all", "exchange"),
+               (mesh.Mesh, "all_reduce_", "all_reduce"),
                (variable, "lookup_train_static", "lookup"),
                (feature_column.EmbeddingGroup, "combine", "combine"),
                (torch.autograd, "grad", "backward"),
@@ -323,18 +333,31 @@ def main():
     ap.add_argument("--zoo", default=None,
                     help="a model of tools/train_zoo_torch.py instead of "
                          "a bench row")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the headline's tables row-sharded over a "
+                         "one-rank NCCL mesh")
     args = ap.parse_args()
+    if args.sharded and (args.zoo or args.graph or args.row != "headline"):
+        ap.error("--sharded takes the headline row, eager")
     sys.path.insert(0, ROOT)
     import chip_smoke
     from deeprec_tpu_torch import bench
     from deeprec_tpu_torch.embedding import variable as ev
 
     chip_smoke.phase_device()
+    mesh = None
+    if args.sharded:
+        from deeprec_tpu_torch.parallel import mesh as meshlib
+        from deeprec_tpu_torch.parallel import multihost
+        store = os.path.join(tempfile.mkdtemp(), "store")
+        multihost.initialize(init_method="file://" + store, rank=0,
+                             world_size=1)
+        mesh = meshlib.data_mesh(1)
     if args.zoo:
         tr, batch_size = zoo_trainer(args.zoo), ZOO_BATCH
         args.opt = "adagrad"
     else:
-        tr = bench.build_wdl(device="cuda", sparse_opt=args.opt,
+        tr = bench.build_wdl(device="cuda", sparse_opt=args.opt, mesh=mesh,
                              **ROW_KW[args.row])
         batch_size = bench.BATCH
     # warm-up, timed steps, the sync count, the spanned step's warm-up
@@ -376,7 +399,7 @@ def main():
     print(f"host syncs in one step: {sum(syncs.values())}", flush=True)
     for where, n in syncs.most_common():
         print(f"host syncs: {n} at {where}", flush=True)
-    if not args.fresh and not args.zoo:
+    if not (args.fresh or args.zoo or args.sharded):
         tr.ts = ts
         probe_report(tr, batches)
 
@@ -384,7 +407,8 @@ def main():
     # when it was made: make a step of the same parts around it.
     from deeprec_tpu_torch.train.loop import make_train_step
     step = make_train_step(tr.group, _spanned("towers_fwd", tr.apply_fn),
-                           tr.loss_fn, tr.sparse_opt, tr.dense_opt)
+                           tr.loss_fn, tr.sparse_opt, tr.dense_opt,
+                           mesh=mesh)
     with stage_spans(args.opt):
         for _ in range(SPAN_WARMUP):
             ts, _ = step(ts, batch())
@@ -404,6 +428,8 @@ def main():
     print(f"profiled steps: n_overflow "
           f"{[int(m['n_overflow']) for m in metrics]}; live keys "
           f"{ {t: int(ev.num_live(st)) for t, st in ts.ev.items()} }", flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
