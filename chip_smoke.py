@@ -233,6 +233,37 @@ non-zero:
    timed (the ``sharded`` records; gloo's ranks share the card, so (b)
    times nothing but its steps).
 
+24. (r) ``table_variants``: the zoo's WDL at full width (its 26 deep
+   columns 64 or 128 wide and 26 wide ones, capacity ceiling 2**18), B =
+   4,096, bf16 towers over float32 params. (a) ``tools/train_zoo_torch
+   .main(["wdl", "--adaptive_emb", ...])`` for 12 steps and 2 eval
+   batches with ``--checkpoint`` (52 adaptive tables: they bypass
+   coalescing; static tables of 2**14 buckets among the dense params):
+   K1, K2, P1 (insert, find) and P2 launch counts reset just before and
+   read just after; the ids gone hot each step (a fresh row among them
+   takes its seed at once); finite loss, 0 < AUC < 1; the end-of-run
+   save restored and served by ``ServingModel`` on 3 requests, bit-equal
+   to ``make_eval_step`` on the restored and on the live state; then
+   steps in process (ms, samples/s, one under
+   ``set_sync_debug_mode("error")``) and each kernel on a step's
+   operands against its plain version (K2 updating the migrated seeds
+   from the lookup's rows), the ``VARIANT_LIMIT`` calls of largest
+   operands of each. (b) That model through ``make_epoch_step``, eager
+   against captured, bit-equal, 0 host syncs. (c) The deep columns as
+   dynamic-dimension columns (4 blocks unlocking at
+   ``VARIANT_THRESHOLDS``, masked) under ``SparseAdagrad`` (K2) and
+   ``SparseAdam`` (K3): steps timed with launch counts reset just
+   before and read just after, the share of keys past each threshold,
+   the kernels on a step's operands (masked rows, fresh rows among
+   them). (d) The same with each deep column's hot sibling at capacity
+   / 16: ``memory_rows`` against ``capacity * dim``. (e) A
+   ``TensibleEV`` grown once on the card: every row, freq and
+   accumulator survives, P1 finds every key of the regrown table (its
+   re-inserts and the find against the plain version). (f) One NCCL rank
+   a card of (a)'s and (d)'s models on a mesh against the unsharded
+   models on the same global batches (phase 23's tolerances; whether
+   bit-equal is logged).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -382,6 +413,26 @@ ZOO_AUC_ROW_KEYS = {"metric", "mode", "backend", "steps", "batch", "seed",
 TOOL_BENCH_STEPS = (8, 14)
 TOOL_SERVING_BATCHES, TOOL_SERVING_REQUESTS = (1, 512), 10
 TOOL_BREAKDOWN_ARGS = ["--cap", "17"]
+# Phase 24 (r): the table variants on the zoo's WDL at full width, B =
+# ZOO_BATCH, bf16 towers: the adaptive tool run (12 steps, threshold 3,
+# 2**14 buckets), then in-process steps (VARIANT_STEPS: warm-up, timed)
+# of the adaptive, dyn-dim (its deep columns in 4 blocks unlocking at
+# VARIANT_THRESHOLDS) and dyn-dim-with-hot-sibling models; each kernel
+# held against its plain version on a step's operands, the
+# VARIANT_LIMIT calls of largest operands of each (the adaptive WDL has
+# 52 tables); the adaptive model's captured epoch over VARIANT_POOL
+# batches; one TensibleEV growth; one NCCL rank of the adaptive and
+# dyn-dim-hot models on a mesh for VARIANT_MESH_STEPS steps against the
+# unsharded models (phase 23's tolerances).
+VARIANT_TOOL_ARGS = ["wdl", "--adaptive_emb", "--bf16", "--batch_size",
+                     str(ZOO_BATCH), "--steps", "12", "--eval_steps", "2"]
+VARIANT_STEPS = (2, 4)
+VARIANT_THRESHOLDS = (2, 4, 6)
+VARIANT_HOT_SHARE = 16  # hot sibling capacity = capacity / 16
+VARIANT_LIMIT = 2
+VARIANT_POOL = 4
+VARIANT_MESH_STEPS = 3
+TENSIBLE_CAPACITY, TENSIBLE_DIM, TENSIBLE_BATCH = 1 << 16, 64, 16384
 
 
 def log(msg: str):
@@ -1192,19 +1243,21 @@ def phase_worker(raw, logits, ckpt_dir: str):
             proc.wait()
 
 
-def _apply(kind, values, slots, grads, upd, is_new, tables, args, plain):
+def _apply(kind, values, slots, grads, upd, is_new, tables, args, plain,
+           base=None):
     """One K2 (``kind`` "adagrad") or K3 ("adam") call, or its plain
-    version, on ``values`` and the slot ``tables``."""
+    version, on ``values`` and the slot ``tables`` (rows updated from
+    ``base`` where given)."""
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
     if kind == "adagrad":
         fn = (sa.adagrad_apply_rows_reference if plain
               else sa.adagrad_apply_rows)
         lr, init_acc = args
         return fn(values, tables[0], slots, grads, lr, update=upd,
-                  is_new=is_new, init_acc=init_acc)
+                  is_new=is_new, init_acc=init_acc, base_rows=base)
     fn = sa.adam_apply_rows_reference if plain else sa.adam_apply_rows
     return fn(values, tables[0], tables[1], slots, grads, *args, update=upd,
-              is_new=is_new)
+              is_new=is_new, base_rows=base)
 
 
 def _applied(C, slots, upd, is_new):
@@ -1273,18 +1326,23 @@ def library_apply(kind, values, tables, slots, grads, upd, args,
 
 
 def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
-                  label: str, time_it: bool, library: bool = False) -> dict:
+                  label: str, time_it: bool, library: bool = False,
+                  base=None) -> dict:
     """Kernel vs plain apply on copies of the same inputs: slot arrays
     equal, rows within APPLY_RTOL/APPLY_ATOL, row C untouched. With
     ``time_it``, median times of both over REPS calls (each applies
     again, in place, on its own copy) and the bound; with ``library``,
-    the time of :func:`library_apply` too."""
+    the time of :func:`library_apply` too. ``base``: the rows the apply
+    updates from (a dyn-dim table's masked rows, an adaptive table's
+    seeds); it reads them in place of the table's, as many bytes."""
     C = values.shape[0] - 1
     kv, pv = values.clone(), values.clone()
     kt = [t.clone() for t in tables]
     pt = [t.clone() for t in tables]
-    _apply(kind, kv, slots, grads, upd, is_new, kt, args, plain=False)
-    _apply(kind, pv, slots, grads, upd, is_new, pt, args, plain=True)
+    _apply(kind, kv, slots, grads, upd, is_new, kt, args, plain=False,
+           base=base)
+    _apply(kind, pv, slots, grads, upd, is_new, pt, args, plain=True,
+           base=base)
     torch.cuda.synchronize()
     for a, b in zip(kt, pt):
         if not torch.equal(a, b):
@@ -1304,9 +1362,11 @@ def compare_apply(kind, values, tables, slots, grads, upd, is_new, args,
         applied, fresh = _applied(C, slots, upd, is_new)
         nbytes = _apply_bytes(kind, C, D, slots, upd, is_new)
         rec["ms"] = median_ms(lambda: _apply(kind, kv, slots, grads, upd,
-                                             is_new, kt, args, plain=False))
+                                             is_new, kt, args, plain=False,
+                                             base=base))
         rec["plain_ms"] = median_ms(lambda: _apply(
-            kind, pv, slots, grads, upd, is_new, pt, args, plain=True))
+            kind, pv, slots, grads, upd, is_new, pt, args, plain=True,
+            base=base))
         rec["bound_ms"] = bound_ms(nbytes)
         rec["updated"] = int(applied.sum())
         rec["fresh"] = int(fresh.sum())
@@ -1405,13 +1465,16 @@ def phase_apply_kernels() -> float:
 
 def _step_grads(tr, batch):
     """One step's lookup and row gradients, without the applies (on a
-    mesh trainer's mesh: its exchanges included)."""
+    mesh trainer's mesh: its exchanges included; an adaptive table's
+    newly hot rows migrated)."""
     ts, group = tr.ts, tr.group
     mesh = getattr(tr, "mesh", None)
     _, gl = group.lookup_train(ts.ev, batch, ts.step, mesh)
+    _, gl = group.migrate_adaptive(None, gl, ts.params)
     rows = {t: lk.rows.detach().requires_grad_() for t, lk in gl.lks.items()}
     params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
-    out = tr.apply_fn(params, group.combine(gl, rows), batch)
+    out = tr.apply_fn(group.model_params(params),
+                      group.combine(gl, rows, params), batch)
     per_ex = tr.loss_fn(out, batch)
     n_ranks = 1 if mesh is None else mesh.size
     grads = torch.autograd.grad(per_ex.sum() / (per_ex.shape[0] * n_ranks),
@@ -1423,12 +1486,14 @@ def _step_applies(tr, kind, gl, grads):
     """Per table, the operands the step's sparse apply (``kind``) takes
     from the lookup ``gl`` and row gradients ``grads`` of
     :func:`_step_grads`: (values, slot tables, slots, grads, update,
-    is_new, optimizer args)."""
+    is_new, optimizer args, base rows or None), as the optimizer's
+    ``_gate`` makes them."""
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
     o = tr.sparse_opt
     ops = []
     for tname, g in grads.items():
         lk = gl.lks[tname]
-        upd = lk.admitted & (lk.slots < tr.group.tables[tname].capacity)
+        upd, base = sparse_lib._gate(tr.group.tables[tname], lk)
         sl = tr.ts.slots[tname]
         if kind == "adagrad":
             tables = [sl["accum"]]
@@ -1439,7 +1504,7 @@ def _step_applies(tr, kind, gl, grads):
             tables = [sl["m"], sl["v"]]
             args = (alpha, o.beta1, o.beta2, o.epsilon)
         ops.append((tr.ts.ev[tname].values, tables, lk.slots,
-                    g.contiguous(), upd, lk.is_new, args))
+                    g.contiguous(), upd, lk.is_new, args, base))
     return ops
 
 
@@ -1449,28 +1514,48 @@ def _table_shapes(tr) -> str:
         f"bytes)" for t, cfg in tr.group.tables.items())
 
 
-def _compare_step_kernels(tr, kind, label, batch):
+def _largest(calls, limit, size):
+    """The ``limit`` calls of the largest ``size`` (all with None), in
+    their order."""
+    if limit is None or len(calls) <= limit:
+        return calls
+    keep = sorted(range(len(calls)), key=lambda i: -size(calls[i]))[:limit]
+    return [calls[i] for i in sorted(keep)]
+
+
+def _compare_step_kernels(tr, kind, label, batch, limit=None):
     """K1 on ``batch``'s own lookup operands, P1 on its probes (then on
     the same batch's probes again, every key present), P2 on its
     fresh-row draws and K2/K3 on its gradients, each against its plain
-    version and timed. Returns (fetch records, apply records, probe
-    records, draw records)."""
+    version and timed; with ``limit``, each kernel on the ``limit``
+    calls of largest operands (a model of many tables). K2/K3 of a
+    dyn-dim or adaptive table update from its lookup's rows, for which
+    no PyTorch call stands in (``library_ms`` null). Returns (fetch
+    records, apply records, probe records, draw records)."""
     with captured_gathers() as calls, captured_probes() as probes, \
             captured_inits() as inits:
         gl, grads = _step_grads(tr, batch)
+    calls = _largest(calls, limit, lambda a: a[1].numel() * a[0].shape[1])
+    probes = _largest(probes, limit, lambda a: a[2].numel())
+    inits = _largest(inits, limit, lambda a: a[2].numel() * a[0].shape[1])
     fetch = [compare_gather(f"{label} same lookup", *args)
              for args in calls]
     probe = compare_probes(f"{label} step's probe", probes)
     draws = [compare_init(f"{label} step's draw", *args) for args in inits]
     del calls, probes, inits
-    recs = [compare_apply(kind, *ops, f"{label} same gradients",
-                          time_it=True, library=True)
-            for ops in _step_applies(tr, kind, gl, grads)]
+    recs = []
+    for *ops, base in _largest(_step_applies(tr, kind, gl, grads), limit,
+                               lambda o: o[3].numel()):
+        recs.append(compare_apply(
+            kind, *ops, f"{label} same gradients"
+            + ("" if base is None else " (from the lookup's rows)"),
+            time_it=True, library=base is None, base=base))
     del gl, grads
     with captured_probes() as probes:
         tr.group.lookup_train(tr.ts.ev, batch, tr.ts.step,
                               getattr(tr, "mesh", None))
-    compare_probes(f"{label} same batch again", probes)
+    compare_probes(f"{label} same batch again",
+                   _largest(probes, limit, lambda a: a[2].numel()))
     return fetch, recs, probe, draws
 
 
@@ -3064,6 +3149,544 @@ def phase_sharded(tmp: str):
     return launches, results["a"][0]["kernels"]
 
 
+# -- phase 24 (r): table variants ---------------------------------------------
+
+@contextlib.contextmanager
+def counting_newly_hot():
+    """Record, per call of ``EmbeddingGroup.migrate_adaptive`` (one a
+    training step), the ids that went hot: a device tensor each, read
+    after the run (no host sync in the step)."""
+    from deeprec_tpu_torch.feature_column.feature_column import (
+        EmbeddingGroup)
+    counts = []
+    orig = EmbeddingGroup.migrate_adaptive
+
+    def counting(self, states, gl, params):
+        seen = {}
+        for cl in gl.columns.values():
+            if cl.adp is not None:
+                seen.setdefault(cl.table_name, cl.adp.newly_hot)
+        if seen:
+            counts.append(sum(m.sum() for m in seen.values()))
+        return orig(self, states, gl, params)
+
+    EmbeddingGroup.migrate_adaptive = counting
+    try:
+        yield counts
+    finally:
+        EmbeddingGroup.migrate_adaptive = orig
+
+
+def _variant_columns(tz, kind: str):
+    """The zoo WDL's columns (``tz.COLUMN_KWARGS["wdl"]``) for a phase
+    24 variant: "adaptive" (threshold 3, 2**14 buckets, as the tool's
+    flags), "dyn_dim" (each deep column in 4 blocks unlocking at
+    ``VARIANT_THRESHOLDS``, masked) or "dyn_dim_hot" (the same with a
+    hot sibling of capacity / ``VARIANT_HOT_SHARE``)."""
+    import dataclasses
+    args = tz.parse_args(VARIANT_TOOL_ARGS if kind == "adaptive"
+                         else VARIANT_TOOL_ARGS[:1] + VARIANT_TOOL_ARGS[2:])
+    cols = tz.columns(args)
+    if kind == "adaptive":
+        return cols
+    out = []
+    for c in cols:
+        if hasattr(c, "dim") and not c.name.endswith("_wide"):
+            c = dataclasses.replace(
+                c, dyn_dim_blocks=4, dyn_dim_thresholds=VARIANT_THRESHOLDS,
+                dyn_dim_hot_capacity=(c.capacity // VARIANT_HOT_SHARE
+                                      if kind == "dyn_dim_hot" else None))
+        out.append(c)
+    return out
+
+
+def _variant_trainer(tz, kind: str, dev, sparse_opt=None, mesh=None):
+    """A phase 24 model (:func:`_variant_columns`) built as
+    ``tz.build`` builds the zoo's WDL (seeded towers, dense Adam, the
+    adaptive static tables among the params), with ``sparse_opt`` (default
+    ``SparseAdagrad`` at the tool's rate); on a ``mesh`` its tables
+    sharded and each rank fed its rows of the global batch."""
+    import types
+
+    from deeprec_tpu_torch.data.criteo import CRITEO_HASH_BUCKETS
+    from deeprec_tpu_torch.feature_column.feature_column import (
+        EmbeddingGroup)
+    from deeprec_tpu_torch.layers.core import init_dense
+    from deeprec_tpu_torch.models.registry import ZOO
+    from deeprec_tpu_torch.optimizers import dense as dense_lib
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import loop
+    args = tz.parse_args(VARIANT_TOOL_ARGS)
+    S, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    group = EmbeddingGroup(
+        _variant_columns(tz, kind), coalesce=True,
+        **({} if mesh is None else dict(axis_name="data", num_shards=S)))
+    module = tz.make_module(args, group, dev)
+    init_dense(module, torch.Generator().manual_seed(args.seed))
+    params = {**module.state_dict(),
+              **group.adaptive_static_params(dev, args.seed)}
+    sopt = sparse_opt or sparse_lib.SparseAdagrad(args.learning_rate)
+    dopt = dense_lib.Adam(2e-3)
+    entry = ZOO["wdl"]
+    apply_fn = entry.make_apply(module, group)
+    ts = loop.create_train_state(group, params, dopt, sopt, dev, mesh)
+    step = loop.make_train_step(group, apply_fn, entry.loss, sopt, dopt,
+                                mesh=mesh)
+    data = entry.make_data(batch_size=ZOO_BATCH * S,
+                           vocab=CRITEO_HASH_BUCKETS, seed=args.seed)
+    wide = any(c.name.endswith("_wide") for c in group.embedding)
+
+    def next_batch():
+        raw = data.next_batch_np(wide=wide)
+        raw = {k: np.asarray(v)[r * ZOO_BATCH:(r + 1) * ZOO_BATCH]
+               for k, v in raw.items()}
+        return group.pack_batch_np(raw, dev)
+
+    return types.SimpleNamespace(
+        ts=ts, step=step, group=group, apply_fn=apply_fn,
+        loss_fn=entry.loss, sparse_opt=sopt, dense_opt=dopt,
+        next_batch=next_batch, mesh=mesh)
+
+
+def _timed_steps(tr, label: str, dev):
+    """``VARIANT_STEPS`` steps (warm-up, timed) of ``tr``, each
+    synchronized; then one more under ``set_sync_debug_mode("error")``
+    (CUDA). Returns (median ms, losses)."""
+    from deeprec_tpu_torch.train import loop
+    warm, timed = VARIANT_STEPS
+    ms, losses = [], []
+    for _ in range(warm + timed):
+        b = tr.next_batch()
+        _sync(dev)
+        t0 = time.perf_counter()
+        tr.ts, m = tr.step(tr.ts, b)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    b = tr.next_batch()
+    _sync(dev)
+    ctx = loop._no_host_sync() if dev.type == "cuda" else \
+        contextlib.nullcontext()
+    with ctx:
+        tr.ts, m = tr.step(tr.ts, b)
+    losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise FloatingPointError(f"phase {label}: losses {losses}")
+    return float(np.median(ms[warm:])), losses
+
+
+def _unlocked_shares(group, states) -> dict:
+    """Per dyn-dim base table, the share of its live keys at or past each
+    unlock threshold (their freq counters)."""
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    out = {}
+    for t, cfg in group.tables.items():
+        thr = VARIANT_THRESHOLDS
+        if t.endswith("#hot") or not (cfg.block_num > 1 or t in
+                                      group._dyn_hot):
+            continue
+        live = ht.live_mask(states[t].table)
+        f = states[t].freqs[:-1][live]
+        n = max(int(live.sum()), 1)
+        out[t] = [round(int((f >= x).sum()) / n, 4) for x in thr]
+    return out
+
+
+def _variant_adaptive(tmp: str, dev, gather_err, apply_err, label):
+    """(a) and (b) of phase 24; returns (records, step ms, epoch stats)."""
+    import types
+
+    from deeprec_tpu_torch.serving.processor import ServingModel
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop
+    tz = _train_zoo()
+    d = os.path.join(tmp, "adaptive")
+    argv = VARIANT_TOOL_ARGS + ["--checkpoint", d] + (
+        ["--cpu"] if dev.type == "cpu" else [])
+    built, build = [], tz.build
+
+    def keep(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
+
+    tz.build = keep
+    try:
+        _zoo_counts(reset=True)                  # the main path starts here
+        with counting_newly_hot() as newly:
+            t0 = time.perf_counter()
+            out = tz.main(argv)
+            tool_s = time.perf_counter() - t0
+        launches = _zoo_counts()                 # the main path ends here
+    finally:
+        tz.build = build
+    est, make_data, pack, _ = built[0]
+    newly = [int(x) for x in newly]
+    need = ("gather_rows", "adagrad_apply_rows", "hash_probe_insert",
+            "init_fresh_rows", "hash_probe_find")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"phase {label}: a kernel of the adaptive path "
+                             f"did not launch: {launches}")
+    if not (np.isfinite(out["final_loss"]) and 0.0 < out["auc"] < 1.0):
+        raise AssertionError(f"phase {label}: {out}")
+    if sum(newly) < 1:
+        raise AssertionError(f"phase {label}: no id went hot: {newly}")
+    group = est.group
+    log(f"phase {label} (a): tools/train_zoo_torch.py "
+        f"{' '.join(VARIANT_TOOL_ARGS[1:])}: {len(group.tables)} adaptive "
+        f"tables, static tables of {group.tables['C1'].adaptive_buckets} "
+        f"buckets; loss {out['final_loss']}, auc {out['auc']} in "
+        f"{tool_s:.3f} s; newly hot ids a step {newly}; launches {launches}")
+
+    # The end-of-run save restored and served.
+    restored = ckptlib.CheckpointManager(d, group).restore(est.ts)
+    served = ServingModel(group, est.apply_fn, est.ts, d)
+    version = served.full_update()
+    eval_step = loop.make_eval_step(group, est.apply_fn)
+    requests = make_data(10_001)
+    diffs = []
+    for _ in range(3):
+        b = pack(requests, dev)
+        got, want = served.predict(b), eval_step(restored, b)
+        live = eval_step(est.ts, b)
+        if not (torch.equal(got, want) and torch.equal(want, live)):
+            raise AssertionError(f"phase {label}: served logits differ from "
+                                 f"the eval step's on the restored state")
+        if not bool(torch.isfinite(got).all()):
+            raise FloatingPointError(f"phase {label}: served {got}")
+        diffs.append(float(got.float().std()))
+    log(f"phase {label} (a): the step-{version} save restored; "
+        f"ServingModel's logits on 3 requests of {ZOO_BATCH} rows equal "
+        f"make_eval_step's on the restored state and on the live one, "
+        f"bit for bit (logit std {[round(x, 4) for x in diffs]})")
+    del restored, served
+
+    # In process: timed steps, then each kernel on a step's operands.
+    tr = types.SimpleNamespace(
+        ts=est.ts, step=est._step_fn, group=group, apply_fn=est.apply_fn,
+        loss_fn=est.loss_fn, sparse_opt=est.sparse_opt,
+        dense_opt=est.dense_opt,
+        next_batch=lambda data=make_data(1): pack(data, dev))
+    step_ms, losses = _timed_steps(tr, label + " (a)", dev)
+    with counting_newly_hot() as newly:
+        fetch, applies, probes, draws = _compare_step_kernels(
+            tr, "adagrad", f"{label} (a) adaptive step", tr.next_batch(),
+            limit=VARIANT_LIMIT)
+    with captured_probes() as evals:
+        est.predict(tr.next_batch())
+    finds = compare_probes(f"{label} (a) eval",
+                           _largest(evals, VARIANT_LIMIT,
+                                    lambda a: a[2].numel()))
+    log(f"phase {label} (a): median synchronized step {step_ms:.3f} ms "
+        f"({ZOO_BATCH / step_ms * 1e3:.1f} samples/s) over "
+        f"{VARIANT_STEPS[1]} steps after {VARIANT_STEPS[0]} (losses "
+        f"{[round(x, 5) for x in losses]}); one step under "
+        f"set_sync_debug_mode('error'); the compared step's newly hot ids "
+        f"{[int(x) for x in newly]} (their rows seeded, K2 updating from "
+        f"the lookup's rows)")
+    path = "table_variants/adaptive"
+    records = (_path_records(path, launches, fetch, applies, gather_err,
+                             apply_err, probes=probes, draws=draws)
+               + [_probe_record(path, launches, finds, kind="find")])
+
+    # (b) the same model captured, against its eager loop.
+    pool = [tr.next_batch() for _ in range(VARIANT_POOL)]
+    if dev.type == "cuda":
+        _, e_launches, stats = eager_vs_graph(tr, pool, 1, "adagrad",
+                                              f"{label} (b)")
+        for rec in records[:-1]:
+            base = rec["name"].split("[")[0]
+            records.append(dict(rec, name=f"{base}[{path}_epoch]",
+                                path=path + "_epoch",
+                                launches=e_launches[base], times_from=path,
+                                graph_replays=stats["replays"]))
+    else:
+        stats = {}
+    del est, tr, pool, built
+    _release()
+    return records, step_ms, stats
+
+
+def _variant_dyn_dim(kind: str, sparse: str, dev, gather_err, apply_err,
+                     label):
+    """(c) and (d) of phase 24: one dyn-dim model, ``sparse`` "adagrad"
+    (K2) or "adam" (K3). Returns (records, step ms)."""
+    from deeprec_tpu_torch.embedding import dyn_dim as ddlib
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    tz = _train_zoo()
+    tr = _variant_trainer(
+        tz, kind, dev,
+        sparse_lib.SparseAdam() if sparse == "adam" else None)
+    group = tr.group
+    _zoo_counts(reset=True)                      # the main path starts here
+    step_ms, losses = _timed_steps(tr, label, dev)
+    launches = _zoo_counts()                     # the main path ends here
+    kname = f"{sparse}_apply_rows"
+    need = ("gather_rows", kname, "hash_probe_insert", "init_fresh_rows")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"phase {label}: a kernel of the {kind} path "
+                             f"did not launch: {launches}")
+    shares = _unlocked_shares(group, tr.ts.ev)
+    if not any(v[-1] > 0 for v in shares.values()):
+        raise AssertionError(f"phase {label}: no key unlocked every block: "
+                             f"{shares}")
+    memory = ""
+    if kind == "dyn_dim_hot":
+        full = stored = 0
+        for c in group.embedding:
+            tc = c.table_config()
+            if tc.block_num > 1:
+                full += tc.capacity * tc.dim
+                stored += ddlib.DynDimEV(
+                    tc, c.dyn_dim_hot_capacity).memory_rows()
+        hot = list(group._dyn_hot.values())
+        live_hot = sum(int(ht.num_live(tr.ts.ev[t].table)) for t in hot)
+        memory = (f"; memory_rows {stored} floats against capacity * dim "
+                  f"{full} (ratio {stored / full:.4f}); hot sibling "
+                  f"capacities {sorted({group.tables[t].capacity for t in hot})}"
+                  f", {live_hot} live hot rows")
+    tables = sorted({(cfg.dim, cfg.capacity, cfg.block_num)
+                     for cfg in group.tables.values()})
+    log(f"phase {label}: {kind}, {sparse}: {len(group.tables)} tables "
+        f"(dim, capacity, block_num) {tables}; median synchronized step "
+        f"{step_ms:.3f} ms ({ZOO_BATCH / step_ms * 1e3:.1f} samples/s) over "
+        f"{VARIANT_STEPS[1]} steps after {VARIANT_STEPS[0]}, losses "
+        f"{[round(x, 5) for x in losses]}, one step under "
+        f"set_sync_debug_mode('error'); share of live keys at or past "
+        f"thresholds {VARIANT_THRESHOLDS}: {shares}{memory}; launches "
+        f"{launches}")
+    fetch, applies, probes, draws = _compare_step_kernels(
+        tr, sparse, f"{label} {kind} {sparse} step", tr.next_batch(),
+        limit=VARIANT_LIMIT)
+    del tr
+    _release()
+    path = "table_variants/" + kind + ("_adam" if sparse == "adam" else "")
+    recs = _path_records(path, launches, fetch, applies, gather_err,
+                         apply_err, kind=sparse, probes=probes, draws=draws)
+    return recs, step_ms
+
+
+def _variant_tensible(dev, label):
+    """(e) of phase 24: a TensibleEV grown once on the card. Returns P1's
+    records (the growth's re-inserts, the regrown table's find)."""
+    from deeprec_tpu_torch import config as cfglib
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.embedding import lookup as lkup
+    from deeprec_tpu_torch.embedding import tensible
+    from deeprec_tpu_torch.embedding import variable as ev
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.utils import keys as keylib
+    cfg = cfglib.TableConfig(name="tensible", dim=TENSIBLE_DIM,
+                             capacity=TENSIBLE_CAPACITY, init_scale=0.1)
+    t = tensible.TensibleEV(cfg, sparse_lib.SparseAdagrad(0.05),
+                            growth_threshold=0.5, device=dev)
+    rng = np.random.default_rng(5)
+    _zoo_counts(reset=True)                      # the main path starts here
+    step, grew = 0, False
+    while not grew:
+        ids = rng.integers(0, 1 << 40, TENSIBLE_BATCH, dtype=np.int64)
+        hi, lo = keylib.split_ids(ids)
+        dd = lkup.dedup(torch.from_numpy(hi).to(dev),
+                        torch.from_numpy(lo).to(dev))
+        lk = t.lookup_train(dd.uhi, dd.ulo, dd.counts, step)
+        g = torch.randn(lk.rows.shape, device=dev) * 0.1
+        t.apply_gradients(lk, g, step)
+        step += 1
+        before = ev.export_arrays(t.cfg, t.state)
+        acc_before = t.slots["accum"][:-1][ht.live_mask(t.state.table)]
+        with captured_probes() as inserts:
+            t0 = time.perf_counter()
+            grew = t.maybe_grow()
+            _sync(dev)
+            grow_s = time.perf_counter() - t0
+        if step > 8:
+            raise AssertionError(f"phase {label}: no growth in {step} steps")
+    after = ev.export_arrays(t.cfg, t.state)
+    o_b, o_a = np.argsort(before["keys"]), np.argsort(after["keys"])
+    acc_after = t.slots["accum"][:-1][ht.live_mask(t.state.table)]
+    if not (np.array_equal(before["keys"][o_b], after["keys"][o_a])
+            and np.array_equal(before["values"][o_b], after["values"][o_a])
+            and np.array_equal(before["freqs"][o_b], after["freqs"][o_a])
+            and np.array_equal(acc_before.cpu().numpy()[o_b],
+                               acc_after.cpu().numpy()[o_a])):
+        raise AssertionError(f"phase {label}: rows did not survive growth")
+    hi, lo = keylib.split_ids(after["keys"])
+    qhi, qlo = (torch.from_numpy(x).to(dev) for x in (hi, lo))
+    with captured_probes() as finds:
+        slots = ht.find(t.state.table, qhi, qlo,
+                        max_probes=t.cfg.max_probes)
+    if not bool((slots < t.capacity).all()):
+        raise AssertionError(f"phase {label}: the regrown table lost keys")
+    # One more training step on the regrown table.
+    lk = t.lookup_train(qhi[:TENSIBLE_BATCH], qlo[:TENSIBLE_BATCH],
+                        torch.ones(min(TENSIBLE_BATCH, qhi.numel()),
+                                   dtype=torch.int32, device=dev), step)
+    t.apply_gradients(lk, torch.zeros_like(lk.rows), step)
+    launches = _zoo_counts()                     # the main path ends here
+    if min(launches[k] for k in ("gather_rows", "adagrad_apply_rows",
+                                 "hash_probe_insert", "hash_probe_find",
+                                 "init_fresh_rows")) < 1:
+        raise AssertionError(f"phase {label}: {launches}")
+    ins = compare_probes(f"{label} growth re-insert",
+                         _largest(inserts, VARIANT_LIMIT,
+                                  lambda a: a[2].numel()))
+    fin = compare_probes(f"{label} regrown find", finds)
+    log(f"phase {label}: TensibleEV [{TENSIBLE_CAPACITY}, {TENSIBLE_DIM}] "
+        f"grew to {t.capacity} after {step} steps of {TENSIBLE_BATCH} "
+        f"unseen ids ({after['keys'].size} keys, generation "
+        f"{t.generation}) in {grow_s:.3f} s (export, P1 re-insert in "
+        f"chunks of 8,192, scatter of rows and accumulators); every key's "
+        f"row, freq and accumulator equal after it; P1 finds every key "
+        f"in the regrown table; launches {launches}")
+    path = "table_variants/tensible"
+    return [_probe_record(path, launches, ins),
+            _probe_record(path, launches, fin, kind="find")]
+
+
+def _variants_mesh_run(mesh, tmp: str) -> dict:
+    """(f) of phase 24 on one rank: the adaptive and dyn-dim-hot models
+    sharded over ``mesh`` against the unsharded models on the same
+    global batches, both on this rank's card."""
+    from deeprec_tpu_torch.train import loop
+    tz = _train_zoo()
+    dev, S, r = mesh.device, mesh.size, mesh.rank
+    out = {}
+    for kind in ("adaptive", "dyn_dim_hot"):
+        label = f"24 (f) {kind} rank {r} of {S}"
+        tr = _variant_trainer(tz, kind, dev, mesh=mesh)
+        ref = _variant_trainer(tz, kind, dev)
+        ref_batches = [ref.next_batch() for _ in range(VARIANT_MESH_STEPS
+                                                        + 1)]
+        batches = [tr.next_batch() for _ in range(VARIANT_MESH_STEPS + 1)]
+        _zoo_counts(reset=True)                  # the main path starts here
+        losses = []
+        for b in batches[:VARIANT_MESH_STEPS]:
+            tr.ts, m = tr.step(tr.ts, b)
+            losses.append(float(m["loss"]))
+        logits = loop.make_eval_step(tr.group, tr.apply_fn, mesh)(
+            tr.ts, batches[-1]).float()
+        launches = _zoo_counts()                 # the main path ends here
+        if min(launches[k] for k in ("gather_rows", "adagrad_apply_rows",
+                                     "hash_probe_insert", "hash_probe_find",
+                                     "init_fresh_rows")) < 1:
+            raise AssertionError(f"phase {label}: {launches}")
+        ref_losses = []
+        for b in ref_batches[:VARIANT_MESH_STEPS]:
+            ref.ts, m = ref.step(ref.ts, b)
+            ref_losses.append(float(m["loss"]))
+        np.testing.assert_allclose(losses, ref_losses,
+                                   rtol=SHARDED_LOSS_RTOL,
+                                   err_msg=f"phase {label}: loss")
+        row_err, bit_equal = 0.0, losses == ref_losses
+        for t, cfg in tr.group.tables.items():
+            k_m, v_m = _table_keys_rows(cfg, tr.ts.ev[t])
+            k_r, v_r = _table_keys_rows(ref.group.tables[t], ref.ts.ev[t],
+                                        (r, S))
+            if not np.array_equal(k_m, k_r):
+                raise AssertionError(f"phase {label}: table {t}: key sets "
+                                     f"differ")
+            np.testing.assert_allclose(v_m, v_r, **SHARDED_ROW_TOL,
+                                       err_msg=f"phase {label}: rows of {t}")
+            if v_m.size:
+                row_err = max(row_err, float(np.abs(v_m - v_r).max()))
+            bit_equal = bit_equal and np.array_equal(v_m, v_r)
+        want = loop.make_eval_step(ref.group, ref.apply_fn)(
+            ref.ts, ref_batches[-1]).float()[r * ZOO_BATCH:
+                                             (r + 1) * ZOO_BATCH]
+        eval_err = float((logits - want).abs().max())
+        if not eval_err <= SHARDED_LOGIT_ATOL:
+            raise AssertionError(f"phase {label}: eval logits differ by "
+                                 f"{eval_err}")
+        bit_equal = bit_equal and eval_err == 0.0
+        out[kind] = {"losses": losses, "ref_losses": ref_losses,
+                     "row_err": row_err, "eval_err": eval_err,
+                     "bit_equal": bool(bit_equal), "launches": launches,
+                     "placement": tr.group.placement_plan()}
+        del tr, ref, batches, ref_batches
+        _release()
+    return out
+
+
+def _variants_rank(rank, world, tmp, card, draws):
+    """A spawned NCCL rank of phase 24 (f); writes its results to
+    ``tmp/variants-r<rank>.json``."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    CARD.update(card)
+    DRAW_INSTRUCTIONS.update(draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(
+        backend="nccl", rank=rank, world_size=world, device="cuda",
+        init_method="file://" + os.path.join(tmp, "store-variants"))
+    try:
+        out = _variants_mesh_run(meshlib.data_mesh(world), tmp)
+        with open(os.path.join(tmp, f"variants-r{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_variants(tmp: str, gather_err: float, apply_err: float,
+                   device="cuda") -> list:
+    """Phase 24 (r): the table and column variants; see the module's
+    docstring. Returns the kernels' records of the ``table_variants/*``
+    paths."""
+    label = "24 (r)"
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    records, adaptive_ms, epoch = _variant_adaptive(
+        tmp, dev, gather_err, apply_err, label)
+    summary = {"adaptive_step_ms": round(adaptive_ms, 3)}
+    if epoch:
+        summary["adaptive_epoch"] = {k: round(v, 4) for k, v in
+                                     epoch.items()}
+    for kind, sparse, part in (("dyn_dim", "adagrad", "c"),
+                               ("dyn_dim", "adam", "c"),
+                               ("dyn_dim_hot", "adagrad", "d")):
+        recs, ms = _variant_dyn_dim(kind, sparse, dev, gather_err,
+                                    apply_err, f"{label} ({part})")
+        records += recs
+        summary[f"{kind}_{sparse}_step_ms"] = round(ms, 3)
+    records += _variant_tensible(dev, f"{label} (e)")
+    if dev.type == "cuda":
+        import torch.multiprocessing as mp
+        world = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        mp.spawn(_variants_rank, nprocs=world, join=True, args=(
+            world, tmp, dict(CARD), dict(DRAW_INSTRUCTIONS)))
+        launches = {}
+        for r in range(world):
+            with open(os.path.join(tmp, f"variants-r{r}.json")) as f:
+                res = json.load(f)
+            for kind, v in res.items():
+                places = {}
+                for p in v["placement"].values():
+                    places[p] = places.get(p, 0) + 1
+                log(f"phase {label} (f) nccl rank {r} of {world}: {kind}, "
+                    f"tables {places}: losses {v['losses']} "
+                    f"(unsharded {v['ref_losses']}); rows' max abs diff "
+                    f"{v['row_err']:.3g}, eval logits {v['eval_err']:.3g}; "
+                    f"bit-equal to the unsharded model: {v['bit_equal']}; "
+                    f"launches {v['launches']}")
+                for k, n in v["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+        log(f"phase {label} (f): {world} rank(s) in "
+            f"{time.perf_counter() - t0:.3f} s")
+        path = "table_variants/mesh"
+        for rec in [x for x in records
+                    if x["path"] == "table_variants/adaptive"]:
+            base = rec["name"].split("[")[0]
+            records.append(dict(rec, name=f"{base}[{path}]", path=path,
+                                launches=launches[base],
+                                times_from="table_variants/adaptive"))
+    log(f"phase {label}: table variants in "
+        f"{time.perf_counter() - t_phase:.3f} s; {json.dumps(summary)}")
+    return records
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3128,6 +3751,9 @@ def main():
     _release()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
         sh_launches, sh = phase_sharded(d)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as d:
+        variant_records = phase_variants(d, gather_err, apply_err)
+    _release()
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -3149,7 +3775,8 @@ def main():
         + bench_records
         + _path_records("sharded", sh_launches, sh["fetch"], sh["applies"],
                         gather_err, apply_err, probes=sh["probes"],
-                        draws=sh["draws"]))
+                        draws=sh["draws"])
+        + variant_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

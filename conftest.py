@@ -31,9 +31,12 @@ FILE_SECONDS = {
     "tests/test_dyn_dim.py": 129.0,
     "tests/test_embedding_variable.py": 104.9,
     "tests/test_checkpoint.py": 92.3,
+    "tests/test_torch_column_variants.py": 87.4,
     "tests/test_tensible.py": 80.0,
     "tests/test_optimizer_matrix.py": 69.5,
     "tests/test_static_sharded.py": 68.4,
+    "tests/test_torch_adaptive.py": 58.3,
+    "tests/test_torch_dyn_dim.py": 57.2,
     "tests/test_processor_abi.py": 56.7,
     "tests/test_train_zoo_cli.py": 53.3,
     "tests/test_torch_ev_admission.py": 50.5,
@@ -49,6 +52,7 @@ FILE_SECONDS = {
     "tests/test_torch_ev_matrix.py": 33.6,
     "tests/test_ev_features.py": 31.6,
     "tests/test_torch_zoo_layers.py": 31.4,
+    "tests/test_torch_variants_mesh.py": 30.2,
     "tests/test_static_bucket.py": 29.8,
     "tests/test_torch_static_bucket.py": 29.3,
     "tests/test_torch_mesh_train.py": 28.4,

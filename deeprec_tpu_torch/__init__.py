@@ -24,5 +24,9 @@ headline, static, dim16 and e2e.
 The model zoo (``models/registry.py``: WDL, DeepFM, DLRM, DIN, DIEN, BST,
 DSSM, ESMM, MMoE, DBMTL, SimpleMultiTask) trains through the same step,
 sequence columns included; ``tools/train_zoo_torch.py`` drives any of
-them.
+them. Tables shard over a ``torch.distributed`` mesh
+(``embedding/sharded.py``). The table and column variants: weighted
+columns, dynamic-dimension tables (``embedding/dyn_dim.py``), adaptive
+embedding (``embedding/adaptive.py``), multi-hash embeddings and
+growable tables (``embedding/multi_hash.py``, ``embedding/tensible.py``).
 """

@@ -2,9 +2,8 @@
 
 Port of ``deeprec_tpu/config.py``: the same frozen dataclasses, with
 ``TableConfig.dtype`` a ``torch.dtype``. Only the options the ported
-serving and training paths honour are carried; adaptive and
-dynamic-dimension hot tables are not ported yet. CBF counters are
-int32 (the JAX package's ``counter_dtype`` default).
+serving and training paths honour are carried. CBF counters are int32
+(the JAX package's ``counter_dtype`` default).
 """
 
 from __future__ import annotations
@@ -102,6 +101,13 @@ class TableConfig:
     # reads ``1 + #(thresholds <= freq)`` of them, the rest are zero.
     block_num: int = 1
     dyn_dim_thresholds: tuple = ()
+    # Adaptive embedding (``embedding/adaptive.py``): ids whose frequency
+    # is below ``adaptive_hot_threshold`` read and train a shared static
+    # hash-bucket table of ``adaptive_buckets`` rows (a dense param);
+    # hot ids get their own EV rows, seeded from the static row they
+    # trained in. None disables.
+    adaptive_hot_threshold: Optional[int] = None
+    adaptive_buckets: int = 0
     # Static hash-bucket table (``categorical_column_with_hash_bucket``
     # + ``embedding_column``, the reference's default column type): a
     # full [capacity, dim] matrix initialized at creation, addressed by
@@ -117,10 +123,10 @@ class TableConfig:
                 raise ValueError(
                     f"table {self.name}: static bucket count must be "
                     "positive")
-            if self.block_num > 1:
+            if self.block_num > 1 or self.adaptive_hot_threshold:
                 raise ValueError(
                     f"table {self.name}: static buckets cannot combine "
-                    "with dynamic-dim embedding")
+                    "with dynamic-dim or adaptive embedding")
             return
         if self.capacity < 1 or self.capacity & (self.capacity - 1):
             raise ValueError(
@@ -135,6 +141,15 @@ class TableConfig:
                 raise ValueError(
                     f"table {self.name}: need {self.block_num - 1} "
                     "dyn_dim_thresholds")
+        if self.adaptive_hot_threshold is not None:
+            if self.adaptive_hot_threshold < 1:
+                raise ValueError(
+                    f"table {self.name}: adaptive_hot_threshold must "
+                    "be >= 1")
+            if self.adaptive_buckets < 2:
+                raise ValueError(
+                    f"table {self.name}: adaptive_buckets must be >= 2 "
+                    "when adaptive_hot_threshold is set")
 
 
 def steps_to_live_of(cfg: TableConfig) -> int:

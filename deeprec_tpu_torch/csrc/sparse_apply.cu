@@ -14,14 +14,21 @@
 //
 //   Adagrad: a = is_new[i] ? init_acc : accum[s]
 //            a = a + g*g
-//            values[s] = values[s] - (lr*g) * rsqrtf(a);  accum[s] = a
+//            values[s] = w - (lr*g) * rsqrtf(a);  accum[s] = a
 //   Adam:    m = is_new[i] ? 0 : m[s];  v = is_new[i] ? 0 : v[s]
 //            m = beta1*m + (1-beta1)*g;  v = beta2*v + ((1-beta2)*g)*g
-//            values[s] = values[s] - (alpha*m) / (sqrtf(v) + eps)
+//            values[s] = w - (alpha*m) / (sqrtf(v) + eps)
 //
-// with g = grads[i] ([n, D] float32). alpha (the bias-corrected step)
-// is read from device memory, once per warp, so the step never waits
-// on the host. The slots of one call are unique by contract (the
+// with g = grads[i] ([n, D] float32) and w = values[s]. Where base_rows
+// ([n, D] float32, the training lookup's rows) is given, w is read from
+// base_rows[i] instead of values[s]: the rows a dynamic-dimension
+// table masked after the fetch (locked blocks read 0, so they are
+// written back as 0 - update, and their update is 0) and the seeds an
+// adaptive table migrated into its newly hot rows. The rule is one for
+// both, and it reads as many bytes as values[s] would; without
+// base_rows the kernel takes the path it always took. alpha (the
+// bias-corrected step) is read from device memory, once per warp, so
+// the step never waits on the host. The slots of one call are unique by contract (the
 // representatives of the training lookup), so rows never race and no
 // atomics are needed.
 //
@@ -96,6 +103,7 @@ constexpr int clamp_batch(int units) {
 struct AdagradArgs {
   float* values;
   float* accum;
+  const float* base_rows;  // [n, D] rows to update from, or null
   float lr, init_acc;
 };
 
@@ -123,7 +131,8 @@ struct AdagradOp : AdagradArgs {
       const int64_t c = c0 + lane + 32 * k;
       if (c < D) {
         u.g[k] = grads[row * D + c];
-        u.w[k] = values[s * D + c];
+        u.w[k] = base_rows != nullptr ? base_rows[row * D + c]
+                                      : values[s * D + c];
         u.a[k] = fresh ? init_acc : accum[s * D + c];
       }
     }
@@ -149,6 +158,7 @@ struct AdamArgs {
   float* values;
   float* m;
   float* v;
+  const float* base_rows;  // [n, D] rows to update from, or null
   const float* alpha_ptr;
   float beta1, omb1, beta2, omb2, eps;
   float alpha;  // *alpha_ptr, loaded by begin()
@@ -174,7 +184,8 @@ struct AdamOp : AdamArgs {
       const int64_t c = c0 + lane + 32 * k;
       if (c < D) {
         u.g[k] = grads[row * D + c];
-        u.w[k] = values[s * D + c];
+        u.w[k] = base_rows != nullptr ? base_rows[row * D + c]
+                                      : values[s * D + c];
         u.m[k] = fresh ? 0.0f : m[s * D + c];
         u.v[k] = fresh ? 0.0f : v[s * D + c];
       }
@@ -305,16 +316,19 @@ int apply(const Args& args, int64_t C1, int64_t D, const void* slots_p,
 
 }  // namespace
 
-// Plain C entries for ctypes. update and is_new may be null (every row
-// updated; no row fresh). Each returns the cudaError_t of its launch.
+// Plain C entries for ctypes. update, is_new and base_rows may be null
+// (every row updated; no row fresh; rows updated from values). Each
+// returns the cudaError_t of its launch.
 extern "C" int deeprec_adagrad_apply_rows(void* values, void* accum,
                                           int64_t C1, int64_t D,
                                           const void* slots, const void* grads,
                                           int64_t n, const void* update,
-                                          const void* is_new, float lr,
+                                          const void* is_new,
+                                          const void* base_rows, float lr,
                                           float init_acc, void* stream) {
   const AdagradArgs args{static_cast<float*>(values),
-                         static_cast<float*>(accum), lr, init_acc};
+                         static_cast<float*>(accum),
+                         static_cast<const float*>(base_rows), lr, init_acc};
   return apply<AdagradOp>(args, C1, D, slots, grads, n, update, is_new,
                           stream);
 }
@@ -323,12 +337,15 @@ extern "C" int deeprec_adam_apply_rows(void* values, void* m, void* v,
                                        int64_t C1, int64_t D,
                                        const void* slots, const void* grads,
                                        int64_t n, const void* update,
-                                       const void* is_new, const void* alpha,
+                                       const void* is_new,
+                                       const void* base_rows, const void* alpha,
                                        float beta1, float omb1, float beta2,
                                        float omb2, float eps, void* stream) {
   if (n > 0 && alpha == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const AdamArgs args{static_cast<float*>(values), static_cast<float*>(m),
-                      static_cast<float*>(v), static_cast<const float*>(alpha),
+                      static_cast<float*>(v),
+                      static_cast<const float*>(base_rows),
+                      static_cast<const float*>(alpha),
                       beta1, omb1, beta2, omb2, eps, 0.0f};
   return apply<AdamOp>(args, C1, D, slots, grads, n, update, is_new, stream);
 }

@@ -4,7 +4,7 @@ of one table.
 Port of ``dedup``, ``combine_bags``, ``combine_from_occ``,
 ``BagLookup``, ``bag_lookup_train`` and ``bag_lookup_infer`` from
 ``deeprec_tpu/embedding/lookup.py`` (combiners sum / mean / sqrtn over
-padded-dense ``[B, L]`` bags). CBF-filtered tables take the sorted path
+padded-dense ``[B, L]`` bags, optionally weighted per occurrence). CBF-filtered tables take the sorted path
 (``dedup``, then ``variable.lookup_train``), every other EV table the
 sort-free ``variable.lookup_train_occ``.
 """
@@ -70,7 +70,10 @@ def dedup(hi, lo) -> DedupResult:
     return DedupResult(uhi, ulo, counts, inverse)
 
 
-def _reduce(s, w, combiner: str):
+def _reduce(s, w, combiner: str, weighted: bool):
+    """Bag sums ``s`` [B, dim] over the occurrence weights ``w`` [B, L]
+    (the mask itself when unweighted): mean divides by sum(w), sqrtn by
+    sqrt(sum(w^2)), floored at 1 unweighted and at 1e-9 weighted."""
     if combiner == "sum":
         return s
     if combiner == "mean":
@@ -79,26 +82,36 @@ def _reduce(s, w, combiner: str):
         denom = torch.sqrt((w * w).sum(dim=1))
     else:
         raise ValueError(f"unknown combiner {combiner!r}")
-    return s / torch.clamp(denom, min=1.0)[:, None]
+    return s / torch.clamp(denom, min=1e-9 if weighted else 1.0)[:, None]
 
 
-def combine_bags(rows, inverse, mask, combiner: str):
+def combine_bags(rows, inverse, mask, combiner: str, weights=None):
     """Reduce per-occurrence rows into per-bag embeddings.
 
     rows:    [n_unique, dim]
     inverse: [B, L] indices into rows
     mask:    [B, L] bool, real (non-padding) positions
+    weights: optional [B, L] per-occurrence weights (the
+             ``weighted_categorical_column``): sum_i w_i x_i, mean
+             divides by sum(w), sqrtn by sqrt(sum(w^2))
     Returns [B, dim].
     """
     m = mask.to(rows.dtype)
-    return _reduce((rows[inverse] * m[..., None]).sum(dim=1), m, combiner)
+    w = m if weights is None else weights.to(rows.dtype) * m
+    return _reduce((rows[inverse] * w[..., None]).sum(dim=1), w, combiner,
+                   weights is not None)
 
 
-def combine_from_occ(per_occ, mask, combiner: str):
+def combine_from_occ(per_occ, mask, combiner: str, weights=None):
     """Reduce pre-gathered, mask-multiplied per-occurrence rows
     ``[B, L, dim]`` into per-bag embeddings ``[B, dim]``: the tail of
     :func:`combine_bags` for callers that gather once per table."""
-    return _reduce(per_occ.sum(dim=1), mask.to(per_occ.dtype), combiner)
+    m = mask.to(per_occ.dtype)
+    if weights is None:
+        return _reduce(per_occ.sum(dim=1), m, combiner, False)
+    w = weights.to(per_occ.dtype)
+    return _reduce((per_occ * w[..., None]).sum(dim=1), w * m, combiner,
+                   True)
 
 
 class BagLookup(NamedTuple):

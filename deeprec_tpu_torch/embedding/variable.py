@@ -490,9 +490,10 @@ def _dyn_dim_mask(cfg: cfglib.TableConfig, rows, freqs_rows):
     if cfg.block_num <= 1:
         return rows
     block_dim = cfg.dim // cfg.block_num
-    thr = torch.tensor(cfg.dyn_dim_thresholds, dtype=torch.int32,
-                       device=rows.device)
-    blocknums = 1 + (freqs_rows[:, None] >= thr[None, :]).sum(dim=1)
+    # Compared threshold by threshold: a tensor of them would be a copy
+    # from the host, which a captured step may not make.
+    blocknums = 1 + sum((freqs_rows >= int(t)).to(torch.int32)
+                        for t in cfg.dyn_dim_thresholds)
     block_idx = torch.arange(cfg.block_num, device=rows.device)
     mask = block_idx[None, :] < blocknums[:, None]
     mask = mask.repeat_interleave(block_dim, dim=1)

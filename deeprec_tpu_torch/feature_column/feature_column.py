@@ -27,9 +27,18 @@ ids exchanged all-to-all, looked up on the owner, rows exchanged
 back), and "replicated" ones are held whole on every rank (a union
 lookup of the ranks' ids, no exchange). The mesh itself is passed to
 ``lookup_train`` and ``create_state``; a mesh group routes its sharded
-tables through the exchange even at one rank. Not ported yet:
-adaptive, weighted and dyn-dim hot columns, and dynamic-dimension
-tables on a mesh.
+tables through the exchange even at one rank.
+
+Column variants: a weighted column (``weight_name``) scales each
+occurrence by its batch weight before the bag combine; a
+dynamic-dimension column with ``dyn_dim_hot_capacity`` splits into a
+base table and a ``<table>#hot`` sibling holding blocks 1.. at the
+small capacity (``embedding/dyn_dim.py``), whose columns' outputs are
+concatenated back in :meth:`EmbeddingGroup.combine`; an adaptive column
+(``adaptive_hot_threshold``) reads cold ids from a static bucket table,
+a dense param ``params["adaptive_static.<table>"]``
+(:meth:`EmbeddingGroup.adaptive_static_params`), and hot ids from its
+EV table (``embedding/adaptive.py``).
 """
 
 from __future__ import annotations
@@ -41,10 +50,13 @@ import numpy as np
 import torch
 
 from deeprec_tpu_torch import config as cfglib
+from deeprec_tpu_torch.embedding import adaptive as adlib
+from deeprec_tpu_torch.embedding import dyn_dim as ddlib
 from deeprec_tpu_torch.embedding import lookup as lkup
 from deeprec_tpu_torch.embedding import sharded
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.utils import keys as keylib
+from deeprec_tpu_torch.utils import stateless_random as srand
 
 
 def _member_salt(i: int) -> tuple[int, int]:
@@ -134,6 +146,26 @@ class EmbeddingColumn:
     # [num_buckets, dim] matrix by ``id mod num_buckets``, collisions by
     # design, with no hash table, probe, admission or eviction.
     static_bucket: bool = False
+    # Dynamic-dimension EV: dim splits into ``dyn_dim_blocks`` blocks
+    # unlocked by frequency (``dyn_dim_thresholds``, blocks - 1 of
+    # them). With ``dyn_dim_hot_capacity`` the group stores blocks 1..
+    # in a sibling table of that capacity whose rows a key gets once it
+    # crosses the first threshold (``embedding/dyn_dim.py``); without
+    # it, the full matrix is stored and the locked blocks are masked.
+    dyn_dim_blocks: int = 1
+    dyn_dim_thresholds: tuple = ()
+    dyn_dim_hot_capacity: Optional[int] = None
+    # ``weighted_categorical_column``: the batch key of a [B, L] float
+    # weight per occurrence, applied before the bag combiner (sum_i w_i
+    # x_i; mean divides by sum w, sqrtn by sqrt(sum w^2)).
+    weight_name: Optional[str] = None
+    # ``categorical_column_with_adaptive_embedding``: cold ids share a
+    # static table of ``adaptive_buckets`` rows (a dense param, see
+    # ``EmbeddingGroup.adaptive_static_params``); ids whose frequency
+    # reaches ``adaptive_hot_threshold`` get their own EV rows, seeded
+    # from their static row.
+    adaptive_hot_threshold: Optional[int] = None
+    adaptive_buckets: int = 1 << 16
 
     @property
     def table_name(self) -> str:
@@ -156,7 +188,11 @@ class EmbeddingColumn:
             name=self.table_name, dim=self.dim, capacity=self.capacity,
             initializer=self.initializer, init_scale=scale,
             ev_option=self.ev_option, combiner=self.combiner,
-            max_probes=self.max_probes)
+            max_probes=self.max_probes, block_num=self.dyn_dim_blocks,
+            dyn_dim_thresholds=self.dyn_dim_thresholds,
+            adaptive_hot_threshold=self.adaptive_hot_threshold,
+            adaptive_buckets=(self.adaptive_buckets
+                              if self.adaptive_hot_threshold else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +200,15 @@ class SequenceEmbeddingColumn(EmbeddingColumn):
     """Behavior-sequence column: :meth:`EmbeddingGroup.combine` returns
     its per-position rows ``[B, L, dim]`` and mask ``[B, L]`` instead of
     a combined bag (the DIN, DIEN, BST and DSSM input)."""
+
+
+class AdaptiveBits(NamedTuple):
+    """Per-unique routing of an adaptive table: a hot id reads its EV
+    row, a cold one its static bucket (``embedding/adaptive.py``)."""
+
+    hot: torch.Tensor        # [n_unique] bool
+    newly_hot: torch.Tensor  # [n_unique] bool
+    bucket: torch.Tensor     # [n_unique] int32 static-table row
 
 
 class ColumnLookup(NamedTuple):
@@ -175,6 +220,8 @@ class ColumnLookup(NamedTuple):
     mask: torch.Tensor      # [B, L]
     # A mesh table's ``sharded.Routing`` or ``sharded.RepRouting``.
     routing: Any = None
+    weights: Optional[torch.Tensor] = None  # [B, L] per-occurrence weights
+    adp: Optional[AdaptiveBits] = None      # adaptive columns only
 
 
 class GroupLookup(NamedTuple):
@@ -224,7 +271,10 @@ class EmbeddingGroup:
         self._pack_widths: Optional[Dict[str, list]] = None
         # Logical table -> (physical table, id salt or 0).
         self._phys_of: Dict[str, tuple[str, Any]] = {}
+        # Base physical table -> its hot-block sibling (dyn_dim split).
+        self._dyn_hot: Dict[str, str] = {}
         logical: Dict[str, cfglib.TableConfig] = {}
+        hot_caps: Dict[str, int] = {}
         for c in self.embedding:
             tc = c.table_config()
             if tc.name in logical:
@@ -232,9 +282,20 @@ class EmbeddingGroup:
                     raise ValueError(f"shared table {tc.name}: dim mismatch")
             else:
                 logical[tc.name] = tc
-        # Static tables first (their salts, hence their draws, come
-        # first, as in the JAX package); with ``coalesce``, one matrix per
-        # dim class whose members own disjoint row ranges.
+                if tc.block_num > 1 and c.dyn_dim_hot_capacity:
+                    hot_caps[tc.name] = int(c.dyn_dim_hot_capacity)
+        # Tables are added in the JAX package's order (their salts, hence
+        # their draws, follow it): dyn-dim splits, static tables,
+        # adaptive tables, the rest. A split table's base and hot sibling
+        # bypass coalescing, so both look up the same unsalted ids.
+        for name, hc in hot_caps.items():
+            base_cfg, hot_cfg = ddlib.split_configs(logical.pop(name), hc)
+            self._phys_of[name] = (name, 0)
+            self._add_table(base_cfg)
+            self._add_table(hot_cfg, inherit=base_cfg.name)
+            self._dyn_hot[name] = hot_cfg.name
+        # Static tables; with ``coalesce``, one matrix per dim class whose
+        # members own disjoint row ranges.
         # Logical static table -> (row offset, bucket count).
         self._static_map: Dict[str, tuple[int, int]] = {}
         static: Dict[tuple, list] = {}
@@ -255,6 +316,17 @@ class EmbeddingGroup:
             self._add_table(dataclasses.replace(members[0][1],
                                                 name=phys_name, capacity=off),
                             members=[n for n, _ in members])
+        # Adaptive tables bypass coalescing: their lookup's hot/bucket
+        # routing is the table's own.
+        for name in [n for n, tc in logical.items()
+                     if tc.adaptive_hot_threshold is not None]:
+            tc = logical.pop(name)
+            if tc.block_num > 1:
+                raise ValueError(
+                    f"table {name}: adaptive embedding cannot combine "
+                    "with dynamic-dimension blocks")
+            self._phys_of[name] = (name, 0)
+            self._add_table(tc)
         if not coalesce:
             for name, tc in logical.items():
                 self._phys_of[name] = (name, 0)
@@ -284,16 +356,25 @@ class EmbeddingGroup:
                                                 name=phys_name, capacity=cap),
                             members=[n for n, _ in members])
 
-    def _resolve_placement(self, tc: cfglib.TableConfig,
-                           members=None) -> str:
+    def _resolve_placement(self, tc: cfglib.TableConfig, members=None,
+                           inherit: Optional[str] = None) -> str:
         req = self._placement_req
         if self.num_shards <= 1 or req is None:
+            return "sharded"
+        if tc.adaptive_hot_threshold is not None:
+            # The static half is a dense param on every rank already;
+            # replicating the EV half too would be worse than widening
+            # the static table.
             return "sharded"
         if isinstance(req, dict):
             if tc.name in req:
                 return req[tc.name]
             votes = {req[m] for m in members or () if m in req}
-            return votes.pop() if len(votes) == 1 else "sharded"
+            if len(votes) == 1:
+                return votes.pop()
+            if inherit is not None and inherit in self.placement:
+                return self.placement[inherit]
+            return "sharded"
         if req == "auto":
             # Replicating costs the full table on every rank; it saves the
             # table's two all-to-alls and its skew-overflow exposure.
@@ -302,14 +383,11 @@ class EmbeddingGroup:
                     else "sharded")
         raise ValueError(f"unknown placement {req!r}")
 
-    def _add_table(self, tc: cfglib.TableConfig, members=None):
-        place = self._resolve_placement(tc, members)
+    def _add_table(self, tc: cfglib.TableConfig, members=None,
+                   inherit: Optional[str] = None):
+        place = self._resolve_placement(tc, members, inherit)
         if place not in ("sharded", "replicated"):
             raise ValueError(f"table {tc.name}: unknown placement {place!r}")
-        if self.axis_name is not None and tc.block_num > 1:
-            raise NotImplementedError(
-                f"table {tc.name}: dynamic-dimension tables on a mesh are "
-                "not ported (queue 1 item 13)")
         if self.num_shards > 1 and place == "sharded":
             # Static: ceil, so the global slot space capacity * S (slot g
             # on shard g % S at local row g // S) covers every offset.
@@ -556,10 +634,26 @@ class EmbeddingGroup:
     def _table_lookup(self, tname, state, ids_hi, ids_lo, global_step,
                       budget, mesh):
         """One physical table's training lookup under its placement:
-        ``(state, lk, inverse, mask, routing, n_overflow)``; a
-        replicated table drops no id."""
+        ``(state, lk, inverse, mask, routing, n_overflow, adp)``; a
+        replicated table drops no id, and ``adp`` is an adaptive
+        table's :class:`AdaptiveBits` (None for the others)."""
         cfg = self.tables[tname]
         salt = self.salts[tname]
+        zero = torch.zeros((), dtype=torch.int32, device=ids_hi.device)
+        if cfg.adaptive_hot_threshold is not None:
+            kw = dict(hot_threshold=cfg.adaptive_hot_threshold,
+                      num_buckets=cfg.adaptive_buckets, salt=salt)
+            if self._is_stacked(tname):
+                state, al = adlib.lookup_train_sharded(
+                    cfg, state, ids_hi, ids_lo, global_step, mesh=mesh, **kw)
+                routing, n_over = al.routing, al.routing.n_overflow
+            else:
+                state, al = adlib.lookup_train(cfg, state, ids_hi, ids_lo,
+                                               global_step, **kw)
+                routing, n_over = None, zero
+            return (state, al.lk, al.inverse, al.mask, routing, n_over,
+                    AdaptiveBits(hot=al.hot, newly_hot=al.newly_hot,
+                                 bucket=al.bucket))
         if self._is_stacked(tname):
             if cfg.static_buckets:
                 state, sbl = sharded.bag_lookup_train_static(
@@ -570,7 +664,7 @@ class EmbeddingGroup:
                     cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
                     salt=salt)
             r = sbl.routing
-            return state, sbl.lk, r.inverse, r.mask, r, r.n_overflow
+            return state, sbl.lk, r.inverse, r.mask, r, r.n_overflow, None
         if self._is_replicated(tname):
             if cfg.static_buckets:
                 state, (lk, r) = sharded.bag_lookup_train_replicated_static(
@@ -580,18 +674,20 @@ class EmbeddingGroup:
                 state, (lk, r) = sharded.bag_lookup_train_replicated(
                     cfg, state, ids_hi, ids_lo, global_step, mesh=mesh,
                     salt=salt)
-            return state, lk, r.inverse, r.mask, r, torch.zeros(
-                (), dtype=torch.int32, device=ids_hi.device)
+            return state, lk, r.inverse, r.mask, r, zero, None
         state, bl = lkup.bag_lookup_train(
             cfg, state, ids_hi, ids_lo, global_step, salt=salt,
             unique_budget=budget)
-        return state, bl.lk, bl.inverse, bl.mask, None, bl.n_overflow
+        return state, bl.lk, bl.inverse, bl.mask, None, bl.n_overflow, None
 
     def lookup_train(self, states, batch, global_step: ev.Step, mesh=None):
         """Returns ``(states, GroupLookup)``; the tables of ``states``
         are updated in place (inserts, row init, metadata). A mesh group
         takes its ``mesh`` (``parallel.mesh.Mesh``); ``states`` and
-        ``batch`` are then this rank's."""
+        ``batch`` are then this rank's. A weighted column takes its
+        weights from ``batch[column.weight_name]``. A dyn-dim split
+        table's hot sibling looks up the same ids; its columns' lookups
+        are filed as ``<column>#hot``."""
         self._check_mesh(mesh)
         lks: Dict[str, ev.LookupResult] = {}
         cols: Dict[str, ColumnLookup] = {}
@@ -599,31 +695,49 @@ class EmbeddingGroup:
         for tname, tcols in self._columns_by_table().items():
             ids_hi, ids_lo, widths = self._packed_view(batch, tname, tcols)
             budget = self._unique_budget(tcols, widths, ids_hi.shape)
-            (states[tname], lks[tname], inverse, mask, routing,
-             budget_overflow[tname]) = self._table_lookup(
-                tname, states[tname], ids_hi, ids_lo, global_step, budget,
-                mesh)
-            off = 0
-            for c, w in zip(tcols, widths):
-                cols[c.name] = ColumnLookup(
-                    column=c, table_name=tname,
-                    inverse=inverse[:, off:off + w],
-                    mask=mask[:, off:off + w], routing=routing)
-                off += w
+            weights = [batch[c.weight_name] if c.weight_name else None
+                       for c in tcols]
+            for t, suffix in ((tname, ""),
+                              (self._dyn_hot.get(tname), "#hot")):
+                if t is None:
+                    continue
+                (states[t], lks[t], inverse, mask, routing,
+                 budget_overflow[t], adp) = self._table_lookup(
+                    t, states[t], ids_hi, ids_lo, global_step, budget, mesh)
+                off = 0
+                for c, w, cw in zip(tcols, widths, weights):
+                    cols[c.name + suffix] = ColumnLookup(
+                        column=c, table_name=t,
+                        inverse=inverse[:, off:off + w],
+                        mask=mask[:, off:off + w], routing=routing,
+                        weights=cw, adp=adp)
+                    off += w
         return states, GroupLookup(lks=lks, columns=cols,
                                    budget_overflow=budget_overflow,
                                    mesh=mesh)
 
-    @staticmethod
-    def _local_rows(gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+    def _local_rows(self, gl: GroupLookup, rows: Dict[str, torch.Tensor],
+                    params=None):
         """Per table, the rows this rank's occurrences index: the
         lookup's own rows, a replicated table's slice of the union, or a
         sharded table's rows exchanged back from their owners (the
-        differentiable return exchange)."""
-        routing = {cl.table_name: cl.routing for cl in gl.columns.values()}
+        differentiable return exchange). An adaptive table's cold
+        uniques take their static bucket's row first, at the lookup's
+        (owner's) level, so each id's gradient goes to exactly one side:
+        its EV row or the static param."""
+        first = {}
+        for cl in gl.columns.values():
+            first.setdefault(cl.table_name, cl)
         out = {}
         for tname, r in rows.items():
-            rt = routing.get(tname)
+            cl = first.get(tname)
+            rt = cl.routing if cl is not None else None
+            if cl is not None and cl.adp is not None:
+                static = self._adaptive_static(params, tname)
+                idx = adlib.static_index(cl.adp.bucket, gl.lks[tname].qhi,
+                                         static.shape[0])
+                r = torch.where(cl.adp.hot[:, None], r,
+                                static[idx].to(r.dtype))
             if isinstance(rt, sharded.Routing):
                 out[tname] = sharded.local_rows(r, rt, gl.mesh)
             elif isinstance(rt, sharded.RepRouting):
@@ -632,7 +746,8 @@ class EmbeddingGroup:
                 out[tname] = r
         return out
 
-    def _occurrences(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+    def _occurrences(self, gl: GroupLookup, rows: Dict[str, torch.Tensor],
+                     params=None):
         """Per physical table: ``(items, occ, msk)`` with ``items`` its
         ``(column name, ColumnLookup)`` pairs, ``occ`` the masked rows of
         every occurrence ``[B, L_total, dim]`` (one gather per table,
@@ -640,19 +755,23 @@ class EmbeddingGroup:
         by_tbl: Dict[str, list] = {}
         for cname, cl in gl.columns.items():
             by_tbl.setdefault(cl.table_name, []).append((cname, cl))
-        rows = self._local_rows(gl, rows)
+        rows = self._local_rows(gl, rows, params)
         for tname, items in by_tbl.items():
             r = rows[tname]
             inv = torch.cat([cl.inverse for _, cl in items], dim=1)
             msk = torch.cat([cl.mask for _, cl in items], dim=1)
             yield tname, items, r[inv] * msk[..., None].to(r.dtype), msk
 
-    def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor]):
+    def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor],
+                params=None):
         """``rows[table]`` -> per-column embeddings, differentiable in
-        ``rows``: a bag column's [B, dim], a sequence column's
-        ``([B, L, dim] rows, zero at padding; mask [B, L])``."""
+        ``rows`` (and in the static tables of ``params``, which adaptive
+        columns need): a bag column's [B, dim], a sequence column's
+        ``([B, L, dim] rows, zero at padding; mask [B, L])``. A dyn-dim
+        split column's hot blocks are concatenated onto its base
+        block."""
         out = {}
-        for _, items, occ, msk in self._occurrences(gl, rows):
+        for _, items, occ, msk in self._occurrences(gl, rows, params):
             off = 0
             for cname, cl in items:
                 w = cl.inverse.shape[1]
@@ -661,28 +780,46 @@ class EmbeddingGroup:
                     out[cname] = (seg, cl.mask)
                 else:
                     out[cname] = lkup.combine_from_occ(
-                        seg, msk[:, off:off + w], cl.column.combiner)
+                        seg, msk[:, off:off + w], cl.column.combiner,
+                        weights=cl.weights)
                 off += w
-        return out
+        return self._merge_dyn_hot(out)
 
     def combine_tables(self, gl: GroupLookup,
-                       rows: Dict[str, torch.Tensor]):
+                       rows: Dict[str, torch.Tensor], params=None):
         """Fused per-table combine: one masked occurrence tensor per
         physical table, without the per-column split, for models that
         take whole-table matrices (``wdl.apply_fn_fused``). Every member
-        column must be a width-1 bag column (single-valued fields, where
-        the combiner does not matter); raises ``ValueError`` otherwise,
-        a sequence column included, whatever its width.
-        Returns ``{table: ([B, n_cols, dim] rows, [column names])}``,
-        differentiable in ``rows`` as :meth:`combine` is."""
+        column must be a width-1 unweighted bag column (single-valued
+        fields, where the combiner does not matter); raises
+        ``ValueError`` otherwise, a sequence column included, whatever
+        its width. Returns ``{table: ([B, n_cols, dim] rows, [column
+        names])}`` (a dyn-dim hot sibling's under its own table, its
+        columns as ``<column>#hot``), differentiable in ``rows`` (and
+        ``params``) as :meth:`combine` is."""
         for cname, cl in gl.columns.items():
             if (isinstance(cl.column, SequenceEmbeddingColumn)
-                    or cl.inverse.shape[1] != 1):
+                    or cl.inverse.shape[1] != 1 or cl.weights is not None):
                 raise ValueError(
                     f"combine_tables: column {cname!r} is not a width-1 "
                     "unweighted bag column; use combine()")
         return {tname: (occ, [cname for cname, _ in items])
-                for tname, items, occ, _ in self._occurrences(gl, rows)}
+                for tname, items, occ, _ in self._occurrences(gl, rows,
+                                                              params)}
+
+    @staticmethod
+    def _merge_dyn_hot(out):
+        """Concatenate each ``<column>#hot`` output onto its column's
+        (cold keys read zeros there)."""
+        for cname in [k for k in out if k.endswith("#hot")]:
+            base = cname[:-len("#hot")]
+            h = out.pop(cname)
+            if isinstance(out[base], tuple):
+                seq, m = out[base]
+                out[base] = (torch.cat([seq, h[0]], dim=-1), m)
+            else:
+                out[base] = torch.cat([out[base], h], dim=-1)
+        return out
 
     def apply_gradients(self, opt, slot_states, states, gl: GroupLookup,
                         grad_rows: Dict[str, torch.Tensor],
@@ -732,6 +869,76 @@ class EmbeddingGroup:
         configurations): they read defaults and get no update. This
         rank's count; the train step sums it over the ranks."""
         return sum(gl.budget_overflow.values())
+
+    # -- adaptive embedding ----------------------------------------------
+    ADAPTIVE_STATIC = "adaptive_static."
+
+    @property
+    def adaptive_tables(self) -> Dict[str, cfglib.TableConfig]:
+        return {t: c for t, c in self.tables.items()
+                if c.adaptive_hot_threshold is not None}
+
+    @classmethod
+    def _adaptive_static(cls, params, tname: str):
+        try:
+            return params[cls.ADAPTIVE_STATIC + tname]
+        except (TypeError, KeyError):
+            raise ValueError(
+                f"adaptive table {tname!r} needs its static bucket table: "
+                "merge EmbeddingGroup.adaptive_static_params() into the "
+                "params and pass them to combine()") from None
+
+    def adaptive_static_params(self, device="cuda",
+                               seed: int = 0) -> Dict[str, torch.Tensor]:
+        """The dense static bucket table of every adaptive table,
+        ``{"adaptive_static.<table>": [buckets, dim]}``, to merge into
+        the params (``{**module.state_dict(), **group.
+        adaptive_static_params()}``): they train with the dense
+        optimizer and checkpoints carry them with the params. Row ``b``
+        is the table's initializer drawn for the pseudo-id (salt + seed,
+        b), as in the JAX package, whose ``{"adaptive_static": {table:
+        ...}}`` subtree ``convert.params_from_numpy`` maps to these
+        names."""
+        out = {}
+        for tname, cfg in self.adaptive_tables.items():
+            b = torch.arange(cfg.adaptive_buckets, dtype=torch.int32,
+                             device=device)
+            hi = torch.full_like(b, self.salts[tname] + seed)
+            out[self.ADAPTIVE_STATIC + tname] = srand.init_rows(
+                cfg.initializer, hi, b, cfg.dim, cfg.init_scale,
+                salt=self.salts[tname])
+        return out
+
+    @classmethod
+    def model_params(cls, params: Dict[str, torch.Tensor]):
+        """``params`` without the adaptive static tables: what the
+        model's ``apply_fn`` takes."""
+        return {k: v for k, v in params.items()
+                if not k.startswith(cls.ADAPTIVE_STATIC)}
+
+    def migrate_adaptive(self, states, gl: GroupLookup, params):
+        """Value-reuse migration: the uniques that just crossed the hot
+        threshold take the static row they trained in as their row in
+        ``lk.rows`` (the differentiable input), so this step's forward
+        uses it and the sparse apply writes ``seed - update`` back to the
+        EV (K2 and K3 update an adaptive table from ``lk.rows``). Call
+        between ``lookup_train`` and the loss; ``params`` are read as
+        constants. Returns ``(states, gl)``; without adaptive tables,
+        as they came."""
+        if not self.adaptive_tables:
+            return states, gl
+        lks = dict(gl.lks)
+        seen = set()
+        for cl in gl.columns.values():
+            t = cl.table_name
+            if cl.adp is None or t in seen:
+                continue
+            seen.add(t)
+            lk = lks[t]
+            seed = self._adaptive_static(params, t)[cl.adp.bucket.long()]
+            lks[t] = lk._replace(rows=torch.where(
+                cl.adp.newly_hot[:, None], seed.to(lk.rows.dtype), lk.rows))
+        return states, gl._replace(lks=lks)
 
     def numeric_features(self, batch):
         """Stack numeric columns -> [B, sum(shapes)] float32 (a compact

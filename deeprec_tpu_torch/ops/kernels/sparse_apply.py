@@ -11,7 +11,11 @@ Both update ``[C+1, D]`` float32 tables in place at unique ``slots``:
 only rows with ``update[i]`` (all rows when None) and ``0 <= slot < C``
 change; row ``C``, the table's sentinel row, is never written. Rows
 with ``is_new[i]`` start from the initial slot value (``init_acc`` for
-Adagrad, zeros for Adam's moments).
+Adagrad, zeros for Adam's moments). With ``base_rows`` ([n, D] float32,
+the training lookup's rows) an updated row's new weight is computed
+from ``base_rows[i]`` instead of ``values[slot]``, as the JAX package's
+applies compute it from ``lk.rows``: a dynamic-dimension table's masked
+rows, an adaptive table's migrated seeds.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version
@@ -38,9 +42,9 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
     "deeprec_adagrad_apply_rows": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _P,
-                                   _F, _F, _P],
+                                   _P, _F, _F, _P],
     "deeprec_adam_apply_rows": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _P, _P,
-                                _P, _F, _F, _F, _F, _F, _P],
+                                _P, _P, _F, _F, _F, _F, _F, _P],
 }
 
 
@@ -77,7 +81,8 @@ def _fresh(slot_rows, is_new, init_value: float):
 def adagrad_apply_rows_reference(values, accum, slots, grads, lr: float, *,
                                  update: Optional[torch.Tensor] = None,
                                  is_new: Optional[torch.Tensor] = None,
-                                 init_acc: float = 0.1):
+                                 init_acc: float = 0.1,
+                                 base_rows: Optional[torch.Tensor] = None):
     """Plain version of :func:`adagrad_apply_rows`; the spec is
     ``adagrad_apply_rows_reference`` of the Pallas module plus the gate
     and reset. Updates ``values`` and ``accum`` in place and returns
@@ -88,7 +93,7 @@ def adagrad_apply_rows_reference(values, accum, slots, grads, lr: float, *,
     acc_old = accum[idx]
     w_old = values[idx]
     acc = _fresh(acc_old, is_new, init_acc) + g * g
-    w = w_old.to(torch.float32) - lr * g * torch.rsqrt(acc)
+    w = _base(w_old, base_rows) - lr * g * torch.rsqrt(acc)
     accum.index_put_((idx,), torch.where(keep, acc, acc_old))
     values.index_put_((idx,), torch.where(keep, w.to(values.dtype), w_old))
     return values, accum
@@ -97,7 +102,8 @@ def adagrad_apply_rows_reference(values, accum, slots, grads, lr: float, *,
 def adam_apply_rows_reference(values, m, v, slots, grads, alpha, beta1: float,
                               beta2: float, eps: float, *,
                               update: Optional[torch.Tensor] = None,
-                              is_new: Optional[torch.Tensor] = None):
+                              is_new: Optional[torch.Tensor] = None,
+                              base_rows: Optional[torch.Tensor] = None):
     """Plain version of :func:`adam_apply_rows` (``alpha`` a float or a
     one-element tensor); the spec is ``adam_apply_rows_reference`` of
     the Pallas module plus the gate and reset. In place; returns
@@ -110,11 +116,17 @@ def adam_apply_rows_reference(values, m, v, slots, grads, alpha, beta1: float,
     vr = beta2 * _fresh(v_old, is_new, 0.0) + (1 - beta2) * g * g
     if isinstance(alpha, torch.Tensor):
         alpha = alpha.reshape(())
-    w = w_old.to(torch.float32) - alpha * mr / (torch.sqrt(vr) + eps)
+    w = _base(w_old, base_rows) - alpha * mr / (torch.sqrt(vr) + eps)
     m.index_put_((idx,), torch.where(keep, mr, m_old))
     v.index_put_((idx,), torch.where(keep, vr, v_old))
     values.index_put_((idx,), torch.where(keep, w.to(values.dtype), w_old))
     return values, m, v
+
+
+def _base(w_old, base_rows):
+    """The rows an apply updates from: ``base_rows`` where given, else
+    the table's own rows ``w_old``, as float32."""
+    return (w_old if base_rows is None else base_rows).to(torch.float32)
 
 
 def _check(fn, name, t, dtype, shape, device):
@@ -129,7 +141,8 @@ def _check(fn, name, t, dtype, shape, device):
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _check_rows(fn, values, tables, slots, grads, update, is_new):
+def _check_rows(fn, values, tables, slots, grads, update, is_new,
+                base_rows):
     """Device, type, shape and contiguity of a CUDA launch's operands."""
     dev = values.device
     if dev.type != "cuda":
@@ -143,6 +156,8 @@ def _check_rows(fn, values, tables, slots, grads, update, is_new):
     n = slots.shape[0] if slots.dim() == 1 else -1
     _check(fn, "slots", slots, torch.int32, (n,), dev)
     _check(fn, "grads", grads, torch.float32, (n, shape[1]), dev)
+    if base_rows is not None:
+        _check(fn, "base_rows", base_rows, torch.float32, (n, shape[1]), dev)
     for name, t in (("update", update), ("is_new", is_new)):
         if t is not None:
             _check(fn, name, t, torch.bool, (n,), dev)
@@ -161,18 +176,20 @@ def _count(name):
 def adagrad_apply_rows(values, accum, slots, grads, lr: float, *,
                        update: Optional[torch.Tensor] = None,
                        is_new: Optional[torch.Tensor] = None,
-                       init_acc: float = 0.1):
+                       init_acc: float = 0.1,
+                       base_rows: Optional[torch.Tensor] = None):
     """Sparse Adagrad in place over ``values``/``accum`` [C+1, D]
     float32 at unique ``slots`` [n] int32 with ``grads`` [n, D]:
     ``a = (is_new ? init_acc : accum[s]) + g*g``,
-    ``values[s] -= lr*g*rsqrt(a)``, ``accum[s] = a``. Returns
+    ``values[s] = w - lr*g*rsqrt(a)``, ``accum[s] = a``, with ``w``
+    ``base_rows[i]`` where given, else ``values[s]``. Returns
     ``(values, accum)``."""
     if values.device.type == "cpu":
         return adagrad_apply_rows_reference(
             values, accum, slots, grads, lr, update=update, is_new=is_new,
-            init_acc=init_acc)
+            init_acc=init_acc, base_rows=base_rows)
     n = _check_rows("adagrad_apply_rows", values, (("accum", accum),), slots,
-                    grads, update, is_new)
+                    grads, update, is_new, base_rows)
     if n == 0:
         return values, accum
     fn = _kernel("deeprec_adagrad_apply_rows")
@@ -180,8 +197,8 @@ def adagrad_apply_rows(values, accum, slots, grads, lr: float, *,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = fn(values.data_ptr(), accum.data_ptr(), C1, D, slots.data_ptr(),
-                grads.data_ptr(), n, _ptr(update), _ptr(is_new), float(lr),
-                float(init_acc), stream)
+                grads.data_ptr(), n, _ptr(update), _ptr(is_new),
+                _ptr(base_rows), float(lr), float(init_acc), stream)
     if rc != 0:
         raise RuntimeError(f"adagrad_apply_rows: kernel launch failed, "
                            f"cudaError {rc}")
@@ -192,17 +209,19 @@ def adagrad_apply_rows(values, accum, slots, grads, lr: float, *,
 def adam_apply_rows(values, m, v, slots, grads, alpha, beta1: float,
                     beta2: float, eps: float, *,
                     update: Optional[torch.Tensor] = None,
-                    is_new: Optional[torch.Tensor] = None):
+                    is_new: Optional[torch.Tensor] = None,
+                    base_rows: Optional[torch.Tensor] = None):
     """Lazy Adam in place over ``values``/``m``/``v`` [C+1, D] float32
     at unique ``slots`` [n] int32 with ``grads`` [n, D]; ``alpha``, the
     bias-corrected step, is a one-element float32 tensor on the device
-    (a float on the CPU path). Returns ``(values, m, v)``."""
+    (a float on the CPU path); rows update from ``base_rows`` where
+    given. Returns ``(values, m, v)``."""
     if values.device.type == "cpu":
         return adam_apply_rows_reference(
             values, m, v, slots, grads, alpha, beta1, beta2, eps,
-            update=update, is_new=is_new)
+            update=update, is_new=is_new, base_rows=base_rows)
     n = _check_rows("adam_apply_rows", values, (("m", m), ("v", v)), slots,
-                    grads, update, is_new)
+                    grads, update, is_new, base_rows)
     if (not isinstance(alpha, torch.Tensor) or alpha.numel() != 1
             or alpha.dtype != torch.float32 or alpha.device != values.device):
         raise TypeError("adam_apply_rows: alpha must be a one-element "
@@ -218,7 +237,7 @@ def adam_apply_rows(values, m, v, slots, grads, alpha, beta1: float,
         # version's ``(1 - beta1) * g`` rounds it.
         rc = fn(values.data_ptr(), m.data_ptr(), v.data_ptr(), C1, D,
                 slots.data_ptr(), grads.data_ptr(), n, _ptr(update),
-                _ptr(is_new), alpha.data_ptr(), float(beta1),
+                _ptr(is_new), _ptr(base_rows), alpha.data_ptr(), float(beta1),
                 float(1 - beta1), float(beta2), float(1 - beta2), float(eps),
                 stream)
     if rc != 0:

@@ -12,12 +12,15 @@ device (``variable.Step``), with bit-identical results.
 
 Adagrad, Adam and AdamAsync run one hand-written kernel per table and
 call (``ops/kernels/sparse_apply.py``: K2 for Adagrad, K3 for both
-Adams). The kernel reads each updated row's weight from ``values``
-where the JAX package reads ``lk.rows``. The two are equal for every
-updated row: ``lookup_train_occ`` fetches admitted rows from
-``values`` and nothing writes ``values`` between the lookup and the
-apply. The exception is a dynamic-dimension table (``block_num > 1``),
-whose rows are masked after the fetch: these three raise for it.
+Adams). The JAX package updates each row from ``lk.rows``. For most
+tables that equals ``values`` at every updated row (the lookup fetches
+admitted rows from ``values`` and nothing writes ``values`` between the
+lookup and the apply), and the kernel reads ``values``. Two kinds of
+table differ, and for them the kernel takes ``lk.rows`` as its
+``base_rows`` operand: a dynamic-dimension table (``block_num > 1``),
+whose locked blocks the lookup zeroes after the fetch, and an adaptive
+table, whose newly hot rows ``EmbeddingGroup.migrate_adaptive`` seeds
+from the static table.
 
 SGD, AdagradDecay and Ftrl have no Pallas kernel in the JAX package,
 which leaves them to XLA; here they are plain PyTorch on the device of
@@ -41,14 +44,16 @@ from deeprec_tpu_torch.ops.kernels import sparse_apply
 
 
 def _gate(cfg: cfglib.TableConfig, lk: LookupResult):
-    """Update mask of a kernel apply: admitted rows inside the table.
-    (The JAX package also returns the dropping scatter and safe gather
-    indices; the kernels take the mask and index by slot themselves.)"""
-    if cfg.block_num > 1:
-        raise NotImplementedError(
-            f"table {cfg.name}: kernel applies (Adagrad, Adam, AdamAsync) "
-            "on dynamic-dimension tables (block_num > 1) are not ported")
-    return lk.admitted & (lk.slots < cfg.capacity)
+    """``(update, base_rows)`` of a kernel apply: the update mask
+    (admitted rows inside the table; the JAX package also returns the
+    dropping scatter and safe gather indices, the kernels index by slot
+    themselves) and the rows to update from where they may differ from
+    ``values`` (``lk.rows`` of a dynamic-dimension or adaptive table),
+    else None."""
+    base = (lk.rows.to(torch.float32).contiguous()
+            if cfg.block_num > 1 or cfg.adaptive_hot_threshold is not None
+            else None)
+    return lk.admitted & (lk.slots < cfg.capacity), base
 
 
 def _plain_gate(cfg: cfglib.TableConfig, lk: LookupResult):
@@ -106,12 +111,12 @@ class SparseAdagrad:
     def apply(self, cfg, slot_state, values, lk: LookupResult, grad_rows,
               global_step: Step, lr: Optional[float] = None):
         """In place; returns ``(slot_state, values)``."""
-        upd = _gate(cfg, lk)
+        upd, base = _gate(cfg, lk)
         lr = self.learning_rate if lr is None else lr
         sparse_apply.adagrad_apply_rows(
             values, slot_state["accum"], lk.slots, grad_rows.contiguous(),
             lr, update=upd, is_new=lk.is_new,
-            init_acc=self.initial_accumulator_value)
+            init_acc=self.initial_accumulator_value, base_rows=base)
         return slot_state, values
 
 
@@ -181,14 +186,15 @@ class SparseAdam:
         """In place, the beta powers too (so a step captured in a CUDA
         graph advances them at every replay); returns ``(slot_state,
         values)``."""
-        upd = _gate(cfg, lk)
+        upd, base = _gate(cfg, lk)
         lr = self.learning_rate if lr is None else lr
         b1p = slot_state["beta1_power"]
         b2p = slot_state["beta2_power"]
         sparse_apply.adam_apply_rows(
             values, slot_state["m"], slot_state["v"], lk.slots,
             grad_rows.contiguous(), self._alpha(lr, b1p, b2p), self.beta1,
-            self.beta2, self.epsilon, update=upd, is_new=lk.is_new)
+            self.beta2, self.epsilon, update=upd, is_new=lk.is_new,
+            base_rows=base)
         b1p.mul_(self.beta1)
         b2p.mul_(self.beta2)
         return slot_state, values

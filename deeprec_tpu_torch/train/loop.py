@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from deeprec_tpu_torch.embedding import adaptive as adlib
 from deeprec_tpu_torch.embedding import lookup as lkup
 from deeprec_tpu_torch.embedding import sharded as shlib
 from deeprec_tpu_torch.embedding import variable as ev
@@ -115,7 +116,8 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
     n_ranks = 1 if mesh is None else mesh.size
 
     def grads_of(params, rows, batch, gl):
-        out = apply_fn(params, combine(gl, rows), batch)
+        out = apply_fn(group.model_params(params),
+                       combine(gl, rows, params), batch)
         per_ex = loss_fn(out, batch)
         loss = per_ex.sum() / (per_ex.shape[0] * n_mb * n_ranks)
         return loss, torch.autograd.grad(
@@ -123,6 +125,9 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
 
     def body(ts: TrainState, batch, gs):
         states, gl = group.lookup_train(ts.ev, batch, gs, mesh)
+        # Adaptive tables: newly hot uniques take their static row as
+        # this step's row (no-op without adaptive tables).
+        states, gl = group.migrate_adaptive(states, gl, ts.params)
         rows = {t: lk.rows.detach().requires_grad_()
                 for t, lk in gl.lks.items()}
         params = {k: v.detach().requires_grad_()
@@ -381,41 +386,74 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
                      n_epochs)
 
 
+def _infer_rows(group: EmbeddingGroup, ts: TrainState, tname, ids_hi,
+                ids_lo, mesh):
+    """``(rows, inverse)`` of one physical table's read-only lookup:
+    per unique id from the owners on a mesh (a sharded table), else per
+    occurrence (identity ``inverse``). An adaptive table's cold or
+    absent ids read their static bucket (on a mesh, merged on the
+    owner)."""
+    cfg = group.tables[tname]
+    state = ts.ev[tname]
+    B, L = ids_hi.shape
+    if cfg.adaptive_hot_threshold is not None:
+        kw = dict(hot_threshold=cfg.adaptive_hot_threshold,
+                  num_buckets=cfg.adaptive_buckets, salt=group.salts[tname])
+        static = group._adaptive_static(ts.params, tname)
+        if group._is_stacked(tname):
+            rows, inverse, _ = adlib.lookup_infer_rows_sharded(
+                cfg, state, ids_hi, ids_lo, static, mesh=mesh, **kw)
+            return rows, inverse
+        rows = adlib.lookup_infer(cfg, state, ids_hi, ids_lo, static, **kw)
+    elif group._is_stacked(tname):
+        infer = (shlib.lookup_rows_infer_static if cfg.static_buckets
+                 else shlib.lookup_rows_infer)
+        rows, inverse, _ = infer(cfg, state, ids_hi, ids_lo, mesh=mesh)
+        return rows, inverse
+    else:
+        rows = ev.lookup(cfg, state, ids_hi.reshape(-1), ids_lo.reshape(-1))
+    return rows, torch.arange(B * L, device=rows.device).reshape(B, L)
+
+
 @torch.no_grad()
 def eval_embeddings(group: EmbeddingGroup, ts: TrainState, batch,
                     mesh=None):
     """The embedding dict the eval step hands the model: every id
     occurrence looked up on its own (identity ``inverse``), bags
-    combined, sequence columns as ``(rows, mask)``; no mutation. On a
-    ``mesh`` a sharded table's ids go to their owners and come back as
-    rows per unique id (``sharded.lookup_rows_infer``, static:
-    ``lookup_rows_infer_static``); a replicated table is read locally."""
+    combined (weighted columns by their weights), sequence columns as
+    ``(rows, mask)``; no mutation. On a ``mesh`` a sharded table's ids
+    go to their owners and come back as rows per unique id
+    (``sharded.lookup_rows_infer``, static: ``lookup_rows_infer_static``,
+    adaptive: ``adaptive.lookup_infer_rows_sharded``); a replicated
+    table is read locally. A dyn-dim split table's hot sibling is read
+    with the same ids and its rows concatenated onto the base's."""
     group._check_mesh(mesh)
     embs = {}
     for tname, tcols in group._columns_by_table().items():
-        cfg = group.tables[tname]
         ids_hi, ids_lo, widths = group._packed_view(batch, tname, tcols)
         mask = ~((ids_hi == keylib.EMPTY_HI) & (ids_lo == keylib.EMPTY_LO))
-        B, L = ids_hi.shape
-        state = ts.ev[tname]
-        if group._is_stacked(tname):
-            infer = (shlib.lookup_rows_infer_static if cfg.static_buckets
-                     else shlib.lookup_rows_infer)
-            rows, inverse, _ = infer(cfg, state, ids_hi, ids_lo, mesh=mesh)
-        else:
-            rows = ev.lookup(cfg, state, ids_hi.reshape(-1),
-                             ids_lo.reshape(-1))
-            inverse = torch.arange(B * L, device=rows.device).reshape(B, L)
-        off = 0
-        for c, w in zip(tcols, widths):
-            inv_c, m_c = inverse[:, off:off + w], mask[:, off:off + w]
-            if isinstance(c, SequenceEmbeddingColumn):
-                embs[c.name] = (rows[inv_c] * m_c[..., None].to(rows.dtype),
-                                m_c)
-            else:
-                embs[c.name] = lkup.combine_bags(rows, inv_c, m_c,
-                                                 c.combiner)
-            off += w
+        for t in (tname, group._dyn_hot.get(tname)):
+            if t is None:
+                continue
+            rows, inverse = _infer_rows(group, ts, t, ids_hi, ids_lo, mesh)
+            off = 0
+            for c, w in zip(tcols, widths):
+                inv_c, m_c = inverse[:, off:off + w], mask[:, off:off + w]
+                off += w
+                if isinstance(c, SequenceEmbeddingColumn):
+                    e = (rows[inv_c] * m_c[..., None].to(rows.dtype), m_c)
+                else:
+                    e = lkup.combine_bags(
+                        rows, inv_c, m_c, c.combiner,
+                        weights=batch[c.weight_name] if c.weight_name
+                        else None)
+                if t == tname:
+                    embs[c.name] = e
+                elif isinstance(e, tuple):
+                    embs[c.name] = (torch.cat([embs[c.name][0], e[0]],
+                                              dim=-1), m_c)
+                else:
+                    embs[c.name] = torch.cat([embs[c.name], e], dim=-1)
     return embs
 
 
@@ -427,7 +465,7 @@ def make_eval_step(group: EmbeddingGroup, apply_fn: Callable, mesh=None):
 
     @torch.no_grad()
     def _eval(ts: TrainState, batch):
-        return apply_fn(ts.params, eval_embeddings(group, ts, batch, mesh),
-                        batch)
+        return apply_fn(group.model_params(ts.params),
+                        eval_embeddings(group, ts, batch, mesh), batch)
 
     return _eval

@@ -389,19 +389,39 @@ def _tool(name):
 
 
 @pytest.mark.parametrize("argv, what", [
-    (["wdl", "--adaptive_emb"], "queue 1 item 13"),
-    (["deepfm", "--adaptive_emb"], "queue 1 item 13"),
+    (["wdl", "--adaptive_emb"], "adaptive"),
+    (["deepfm", "--adaptive_emb"], "adaptive"),
 ])
 def test_train_zoo_refuses_unported_before_any_table(argv, what,
                                                      monkeypatch):
+    """``--adaptive_emb`` (refused until the port had adaptive tables)
+    trains at tiny shapes: finite losses, every table adaptive, and
+    some ids hot (their freq at the threshold) with rows of their own in
+    the EV tables, whose static tables trained with the dense params."""
     train_zoo_torch = _tool("train_zoo_torch")
+    monkeypatch.setitem(train_zoo_torch.COLUMN_KWARGS, argv[0],
+                        dict(embedding_dim=4, capacity=1 << 8))
+    monkeypatch.setitem(train_zoo_torch.MODULE_KWARGS, argv[0],
+                        dict(hidden=(16, 8)))
+    built = []
+    build = train_zoo_torch.build
 
-    def no_table(*a, **k):
-        raise AssertionError("a table was built")
+    def keep(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
 
-    monkeypatch.setattr(tev, "create", no_table)
-    with pytest.raises(NotImplementedError, match=what):
-        train_zoo_torch.main(argv + ["--cpu"])
+    monkeypatch.setattr(train_zoo_torch, "build", keep)
+    out = train_zoo_torch.main(argv + [
+        "--cpu", "--steps", "4", "--batch_size", "64", "--eval_steps", "2",
+        "--adaptive_threshold", "2", "--adaptive_buckets", "64"])
+    assert out["steps"] == 4 and np.isfinite(out["final_loss"])
+    est = built[0][0]
+    group = est.group
+    assert set(group.adaptive_tables) == set(group.tables), what
+    statics = {k for k in est.ts.params if k.startswith(group.ADAPTIVE_STATIC)}
+    assert len(statics) == len(group.tables)
+    hot = sum(int((st.freqs[:-1] >= 2).sum()) for st in est.ts.ev.values())
+    assert hot > 0
 
 
 def test_train_zoo_runs_micro_batches(monkeypatch, capsys):

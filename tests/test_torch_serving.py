@@ -259,6 +259,10 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.embedding.lookup, "
         "deeprec_tpu_torch.embedding.variable, "
         "deeprec_tpu_torch.embedding.sharded, "
+        "deeprec_tpu_torch.embedding.adaptive, "
+        "deeprec_tpu_torch.embedding.dyn_dim, "
+        "deeprec_tpu_torch.embedding.multi_hash, "
+        "deeprec_tpu_torch.embedding.tensible, "
         "deeprec_tpu_torch.parallel.mesh, "
         "deeprec_tpu_torch.parallel.multihost, "
         "deeprec_tpu_torch.train.estimator, deeprec_tpu_torch.train.metrics, "

@@ -168,29 +168,51 @@ def test_optimizer_apply_matches_jax(opt, D):
 
 # -- on the card ---------------------------------------------------------------
 
-def _kernel_vs_plain(device, opt, C, D, n, seed, share=0.8, new_share=0.3):
+def _base_rows(c, base, seed):
+    """Rows a dyn-dim or adaptive apply updates from, in place of
+    ``values[slot]``: "masked", the locked three quarters of each row
+    zeroed (and their gradients, which the masked forward gives none);
+    "seeded", a migrated seed in every fresh row."""
+    C = c["values"].shape[0] - 1
+    rows = c["values"][np.clip(c["slots"], 0, C)].copy()
+    if base == "masked":
+        rows[:, rows.shape[1] // 4:] = 0.0
+        c["grads"][:, rows.shape[1] // 4:] = 0.0
+    else:
+        seeds = np.random.default_rng(seed).normal(size=rows.shape)
+        rows = np.where(c["is_new"][:, None], seeds, rows)
+    return rows.astype(np.float32)
+
+
+def _kernel_vs_plain(device, opt, C, D, n, seed, share=0.8, new_share=0.3,
+                     base=None):
     c = _case(C, D, n, seed, share=share, new_share=new_share)
     if n > 3:
         if C - 1 not in c["slots"]:
             c["slots"][3] = C - 1      # the last row the kernel may write
         c["update"][c["slots"] == C - 1] = share != 0.0
+    if base is not None:
+        c["base"] = _base_rows(c, base, seed)
     kt, pt = _t(c, device), _t(c, device)
     if opt == "adagrad":
         sa.adagrad_apply_rows(kt["values"], kt["acc"], kt["slots"],
                               kt["grads"], 0.05, update=kt["update"],
-                              is_new=kt["is_new"], init_acc=0.1)
+                              is_new=kt["is_new"], init_acc=0.1,
+                              base_rows=kt.get("base"))
         sa.adagrad_apply_rows_reference(
             pt["values"], pt["acc"], pt["slots"], pt["grads"], 0.05,
-            update=pt["update"], is_new=pt["is_new"], init_acc=0.1)
+            update=pt["update"], is_new=pt["is_new"], init_acc=0.1,
+            base_rows=pt.get("base"))
         slot_keys = ("acc",)
     else:
         alpha = torch.tensor([0.01], device=device)
         sa.adam_apply_rows(kt["values"], kt["m"], kt["v"], kt["slots"],
                            kt["grads"], alpha, *ADAM, update=kt["update"],
-                           is_new=kt["is_new"])
+                           is_new=kt["is_new"], base_rows=kt.get("base"))
         sa.adam_apply_rows_reference(
             pt["values"], pt["m"], pt["v"], pt["slots"], pt["grads"], alpha,
-            *ADAM, update=pt["update"], is_new=pt["is_new"])
+            *ADAM, update=pt["update"], is_new=pt["is_new"],
+            base_rows=pt.get("base"))
         slot_keys = ("m", "v")
     torch.cuda.synchronize()
     for k in slot_keys:
@@ -224,6 +246,47 @@ def test_kernel_fresh_share_on_card(cuda_device, opt, D, new_share):
     for share in (0.26, 1.0):
         _kernel_vs_plain(cuda_device, opt, 5000, D, 4099, 7 * D, share,
                          new_share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [4, 17, 64, 65, 128, 129])
+@pytest.mark.parametrize("base", ["masked", "seeded"])
+def test_kernel_base_rows_on_card(cuda_device, opt, D, base):
+    # A dyn-dim table's masked rows and an adaptive table's seeds (in
+    # fresh rows) as base_rows, at 26 % and 100 % updated.
+    for share in (0.26, 1.0):
+        _kernel_vs_plain(cuda_device, opt, 5000, D, 4099, 3 * D, share, 0.5,
+                         base)
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_plain_base_rows(opt):
+    """``base_rows`` equal to the table's rows leaves the apply as it
+    was, bit for bit; other base rows change the updated rows only."""
+    c = _case(300, 12, 97, 5)
+    C = 300
+    own = c["values"][np.clip(c["slots"], 0, C)]
+    masked = dict(c, base=_base_rows(dict(c), "masked", 5))
+    outs = []
+    for base in (None, own, masked["base"]):
+        t = _t(c)
+        kw = dict(update=t["update"], is_new=t["is_new"],
+                  base_rows=None if base is None else torch.from_numpy(base))
+        if opt == "adagrad":
+            sa.adagrad_apply_rows(t["values"], t["acc"], t["slots"],
+                                  t["grads"], 0.05, init_acc=0.1, **kw)
+        else:
+            sa.adam_apply_rows(t["values"], t["m"], t["v"], t["slots"],
+                               t["grads"], 0.01, *ADAM, **kw)
+        outs.append(t["values"])
+    assert torch.equal(outs[0], outs[1])
+    ok = ((c["slots"] >= 0) & (c["slots"] < C) & c["update"])
+    changed = (outs[2] != outs[0]).any(dim=1).numpy()
+    assert changed[c["slots"][ok]].all()
+    untouched = np.ones(C + 1, bool)
+    untouched[c["slots"][ok]] = False
+    assert not changed[untouched].any()
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from deeprec_tpu import config as jcfg
+from deeprec_tpu.embedding.variable import LookupResult as JLookupResult
 from deeprec_tpu.feature_column.feature_column import EmbeddingGroup as JGroup
 from deeprec_tpu.models import wdl as jwdl
 from deeprec_tpu.optimizers import sparse as jsopt
@@ -211,18 +212,35 @@ def test_unported_paths_raise():
         tev.lookup_train_occ(ccfg, tev.create(ccfg, "cpu"),
                              torch.zeros(2, dtype=torch.int32),
                              torch.arange(2, dtype=torch.int32), 0)
-    cfg = tcfg.TableConfig(name="d", dim=4, capacity=64, block_num=2,
-                           dyn_dim_thresholds=(2,))
+    # A dynamic-dimension table's kernel applies (refused until K2 and
+    # K3 took the lookup's masked rows) equal the JAX package's on the
+    # same lookup: the locked column of each fresh row is written back
+    # as 0, not as its draw.
+    kw = dict(name="d", dim=4, capacity=64, block_num=2,
+              dyn_dim_thresholds=(2,))
+    cfg, jcfg_ = tcfg.TableConfig(**kw), jcfg.TableConfig(**kw)
     st = tev.create(cfg, "cpu")
     hi = torch.zeros(3, dtype=torch.int32)
     lo = torch.arange(3, dtype=torch.int32)
     st, occ = tev.lookup_train_occ(cfg, st, hi, lo, 0)
-    # The kernel applies read values, which a dynamic-dimension table
-    # masks after the fetch.
-    for opt in (tsopt.SparseAdagrad(), tsopt.SparseAdamAsync()):
-        with pytest.raises(NotImplementedError, match="block_num"):
-            opt.apply(cfg, opt.init(cfg, "cpu"), st.values, occ.lk,
-                      torch.zeros_like(occ.lk.rows), 0)
+    jlk = JLookupResult(**{k: jnp.asarray(v.numpy())
+                           for k, v in occ.lk._asdict().items()})
+    g = np.linspace(-1, 1, occ.lk.rows.numel(), dtype=np.float32).reshape(
+        occ.lk.rows.shape) * (occ.lk.rows.numpy() != 0)
+    for opt, jopt in ((tsopt.SparseAdagrad(), jsopt.SparseAdagrad()),
+                      (tsopt.SparseAdamAsync(), jsopt.SparseAdamAsync())):
+        values = st.values.clone()
+        slots = opt.init(cfg, "cpu")
+        opt.apply(cfg, slots, values, occ.lk, torch.from_numpy(g), 0)
+        jslots, jvalues = jopt.apply(jcfg_, jopt.init(jcfg_),
+                                     jnp.asarray(st.values.numpy()), jlk,
+                                     jnp.asarray(g), 0)
+        np.testing.assert_allclose(values.numpy(), np.asarray(jvalues),
+                                   **TOL)
+        for k, v in jslots.items():
+            np.testing.assert_allclose(slots[k].numpy(), np.asarray(v),
+                                       **TOL)
+        assert bool((values[:3, 2:] == 0).all())
     # Micro-batches are ported; with a fused combine they are refused,
     # as in the JAX package.
     with pytest.raises(ValueError, match="micro_batch_num"):

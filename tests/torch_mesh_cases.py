@@ -306,4 +306,90 @@ def split_prefix(res: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
-CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity}
+# -- table variants on the mesh (tests/test_torch_variants_mesh.py) ----------
+
+VARIANT_LR = 0.1
+
+
+def variant_columns(kind: str):
+    """The port's columns of a variant model: "adaptive" (an adaptive
+    bag column of width 2 beside a plain one) or "dyn_dim" (a dyn-dim
+    column split into a base and a ``#hot`` sibling, beside a plain
+    one). Capacities leave room for every id of the test's vocabulary
+    on each shard, so no id overflows on the mesh or off it."""
+    from deeprec_tpu_torch.feature_column.feature_column import (
+        EmbeddingColumn)
+    if kind == "adaptive":
+        return [EmbeddingColumn(name="a", dim=4, capacity=1 << 7,
+                                combiner="mean", adaptive_hot_threshold=2,
+                                adaptive_buckets=16),
+                EmbeddingColumn(name="b", dim=3, capacity=1 << 7)]
+    return [EmbeddingColumn(name="f", dim=8, capacity=128, init_scale=1.0,
+                            dyn_dim_blocks=4, dyn_dim_thresholds=(2, 4, 6),
+                            dyn_dim_hot_capacity=64),
+            EmbeddingColumn(name="g", dim=4, capacity=64)]
+
+
+def variant_apply(p, embs, b):
+    return torch.cat([embs[k] for k in sorted(embs)], dim=1) @ p["w"] + p["b"]
+
+
+def variants(mesh, tmp, kinds, steps: int):
+    """Each kind of ``kinds`` trained ``steps`` steps on the mesh from
+    ``tmp/variant-<kind>.npz`` (``p/<param>``, global batches
+    ``b<i>/<leaf>``, the eval batch ``b<steps>/``), each rank on its
+    rows: losses, tables, eval logits; then saved to
+    ``tmp/ckpt-<kind>``."""
+    from deeprec_tpu_torch.feature_column.feature_column import (
+        EmbeddingGroup)
+    from deeprec_tpu_torch.optimizers import dense as dense_lib
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    from deeprec_tpu_torch.train import losses
+    out = {}
+    for kind in kinds:
+        with np.load(os.path.join(tmp, f"variant-{kind}.npz")) as z:
+            arrs = dict(z)
+        params = {k[2:]: torch.from_numpy(v) for k, v in arrs.items()
+                  if k.startswith("p/")}
+        raw = [split_prefix(arrs, f"b{i}/") for i in range(steps + 1)]
+        B = raw[0]["label"].shape[0]
+        group = EmbeddingGroup(variant_columns(kind), axis_name="data",
+                               num_shards=mesh.size)
+        sopt = sparse_lib.SparseAdagrad(VARIANT_LR)
+        dopt = dense_lib.Adagrad(VARIANT_LR)
+        ts = trainlib.create_train_state(group, params, dopt, sopt, "cpu",
+                                         mesh)
+        step = trainlib.make_train_step(
+            group, variant_apply,
+            lambda o, b: losses.bce_with_logits(o, b["label"]), sopt, dopt,
+            mesh=mesh)
+        bl = B // mesh.size
+
+        def local(r):
+            return group.pack_batch_np(
+                {k: v[mesh.rank * bl:(mesh.rank + 1) * bl]
+                 for k, v in r.items()}, "cpu")
+
+        losses_ = []
+        for r in raw[:steps]:
+            ts, m = step(ts, local(r))
+            losses_.append(float(m["loss"]))
+        logits = trainlib.make_eval_step(group, variant_apply, mesh)(
+            ts, local(raw[steps]))
+        ckptlib.CheckpointManager(os.path.join(tmp, f"ckpt-{kind}"), group,
+                                  mesh=mesh).save(ts)
+        out.update({f"{kind}/" + k: v for k, v in
+                    table_arrays(group, ts.ev).items()})
+        out[f"{kind}/loss"] = np.array(losses_)
+        out[f"{kind}/logits"] = logits.numpy()
+        out.update({f"{kind}/params/{k}": v.numpy()
+                    for k, v in ts.params.items()})
+        out[f"{kind}/placement"] = np.array(
+            sorted(group.placement_plan().items()))
+    return out
+
+
+CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity,
+         "variants": variants}

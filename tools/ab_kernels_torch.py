@@ -396,7 +396,7 @@ def main_path(versions, recs):
                 recs[-1]["admitted"] = int(args[2].sum())
                 report(recs[-1])
         label = "K2" if kind == "adagrad" else "K3"
-        for ops in chip_smoke._step_applies(tr, kind, gl, grads):
+        for *ops, _ in chip_smoke._step_applies(tr, kind, gl, grads):
             recs.append(ab_apply(versions, kind, f"{label} training step",
                                  *ops))
             report(recs[-1])

@@ -8,6 +8,7 @@ Run from the repository root on one CUDA card:
         [--row headline|static|dim16|e2e] [--fresh] [--warmup 10]
         [--trace build/train_trace_torch.json] [--graph]
     python3 tools/profile_train_torch.py --zoo din [--steps 20] ...
+    python3 tools/profile_train_torch.py --zoo wdl --zoo_flags=--adaptive_emb
     python3 tools/profile_train_torch.py --sharded [--steps 20] ...
 
 It builds a WDL row of ``deeprec_tpu_torch.bench`` (by default the
@@ -22,7 +23,8 @@ batches, as the rows of ``bench`` do; with ``--fresh`` every step takes
 a batch no step has seen, as the e2e row's steps do. ``--zoo MODEL``
 takes a model of ``tools/train_zoo_torch.py`` instead (its full-width
 columns and towers, bf16, B = 4,096, its sparse Adagrad and dense
-Adam, the batches of its synthetic stream; the step is the Estimator's).
+Adam, the batches of its synthetic stream; the step is the Estimator's;
+``--zoo_flags`` adds the tool's flags, e.g. ``--adaptive_emb``).
 ``--sharded`` takes the headline with its tables row-sharded over a
 one-rank NCCL mesh (``embedding/sharded.py``; the exchange sends to
 itself), its step ``make_train_step(..., mesh=)``.
@@ -302,13 +304,15 @@ def profile_graph(tr, batches, args, batch_size: int) -> None:
 ZOO_BATCH = 4096
 
 
-def zoo_trainer(name: str):
-    """A zoo model of ``tools/train_zoo_torch.py`` on the card, with the
-    fields of a ``bench`` trainer that this tool reads."""
+def zoo_trainer(name: str, flags=()):
+    """A zoo model of ``tools/train_zoo_torch.py`` (with its ``flags``)
+    on the card, with the fields of a ``bench`` trainer that this tool
+    reads."""
     import types
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import train_zoo_torch as tz
-    args = tz.parse_args([name, "--bf16", "--batch_size", str(ZOO_BATCH)])
+    args = tz.parse_args([name, "--bf16", "--batch_size", str(ZOO_BATCH),
+                          *flags])
     est, make_data, pack, _ = tz.build(args, torch.device("cuda"))
     data = make_data(args.seed)
     return types.SimpleNamespace(
@@ -333,6 +337,9 @@ def main():
     ap.add_argument("--zoo", default=None,
                     help="a model of tools/train_zoo_torch.py instead of "
                          "a bench row")
+    ap.add_argument("--zoo_flags", default="",
+                    help="flags of tools/train_zoo_torch.py for --zoo, "
+                         "space-separated (e.g. --adaptive_emb)")
     ap.add_argument("--sharded", action="store_true",
                     help="the headline's tables row-sharded over a "
                          "one-rank NCCL mesh")
@@ -354,7 +361,8 @@ def main():
                              world_size=1)
         mesh = meshlib.data_mesh(1)
     if args.zoo:
-        tr, batch_size = zoo_trainer(args.zoo), ZOO_BATCH
+        tr, batch_size = zoo_trainer(args.zoo,
+                                     args.zoo_flags.split()), ZOO_BATCH
         args.opt = "adagrad"
     else:
         tr = bench.build_wdl(device="cuda", sparse_opt=args.opt, mesh=mesh,

@@ -18,6 +18,10 @@ and for single-logit models ``auc`` and ``accuracy`` after
         EmbeddingVariable options on every embedding column (CBF
         admission, eviction at checkpoint time)
   --static_bucket                static hash-bucket columns instead
+  --adaptive_emb / --adaptive_threshold / --adaptive_buckets
+        adaptive embedding on every embedding column: ids seen fewer
+        than the threshold times read a static table of that many
+        buckets (a dense param), hotter ids their own EV rows
   --no_emb_fusion                no table coalescing
   --interaction_op dot|cat       dlrm's interaction
   --smartstaged                  batches packed on a prefetch thread
@@ -34,8 +38,7 @@ Pointing ``--checkpoint`` at an earlier run's directory restores its
 newest checkpoint and trains on to ``--steps``. The step log goes to
 stderr. It runs on the CUDA card and fails without one; ``--cpu`` runs
 on the CPU. ``--micro_batch N`` splits each step's dense forward and
-backward into N micro-batches. ``--adaptive_emb`` raises
-``NotImplementedError`` before a table is built.
+backward into N micro-batches.
 
 Usage:
   python3 tools/train_zoo_torch.py wdl --steps 200 --batch_size 2048 \\
@@ -119,7 +122,8 @@ def parse_args(argv=None):
     p.add_argument("--steps_to_live", type=int, default=0)
     p.add_argument("--l2_evict", type=float, default=0.0)
     p.add_argument("--adaptive_emb", action="store_true",
-                   help="adaptive embedding (not ported)")
+                   help="hot ids in EV, cold ids in a static bucket "
+                        "table (adaptive embedding)")
     p.add_argument("--adaptive_threshold", type=int, default=3)
     p.add_argument("--adaptive_buckets", type=int, default=1 << 14)
     p.add_argument("--no_emb_fusion", action="store_true",
@@ -142,16 +146,12 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Exit for an unknown model; raise for what the port does not have,
-    naming its ROADMAP item."""
+    """Exit for an unknown model."""
     from deeprec_tpu_torch.models.registry import ZOO
 
     if args.model not in ZOO:
         raise SystemExit(f"unknown model {args.model!r}; "
                          f"choose from {sorted(ZOO)}")
-    if args.adaptive_emb:
-        raise NotImplementedError(
-            "--adaptive_emb is not ported (ROADMAP queue 1 item 13)")
 
 
 def columns(args):
@@ -181,6 +181,11 @@ def columns(args):
                 cfglib.L2WeightEvict(l2_weight_threshold=args.l2_evict)
                 if args.l2_evict else None))
         cols = [dataclasses.replace(c, ev_option=evo)
+                if isinstance(c, EmbeddingColumn) else c for c in cols]
+    if args.adaptive_emb:
+        cols = [dataclasses.replace(
+                    c, adaptive_hot_threshold=args.adaptive_threshold,
+                    adaptive_buckets=args.adaptive_buckets)
                 if isinstance(c, EmbeddingColumn) else c for c in cols]
     return cols
 
@@ -268,10 +273,13 @@ def build(args, device):
         dense_opt = dense_lib.Adam(dlr)
     else:
         dense_opt = dense_lib.Adagrad(args.learning_rate)
+    # Adaptive columns' static bucket tables train with the dense params.
+    params = {**module.state_dict(),
+              **group.adaptive_static_params(device, args.seed)}
     est = estlib.Estimator(
         group, entry.make_apply(module, group), entry.loss,
         sopt.SparseAdagrad(learning_rate=args.learning_rate), dense_opt,
-        module.state_dict(), micro_batch_num=args.micro_batch,
+        params, micro_batch_num=args.micro_batch,
         model_dir=args.checkpoint, work_queue=wq, device=device)
     return est, make_data, pack, wq
 
