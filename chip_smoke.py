@@ -264,23 +264,60 @@ non-zero:
    models on the same global batches (phase 23's tolerances; whether
    bit-equal is logged).
 
+25. (s) ``tiered``: multi-tier storage (``embedding/multi_tier.py``) on
+   the headline WDL at full width (``bench.build_wdl(storage=...)``: both
+   coalesced tables ``HBM_HOST``, so they record freq and version), fed
+   unseen batches of the e2e row's vocabulary (``TIER_VOCAB``), the
+   ``TieredGroup``'s ``pre_step`` taking each raw batch (its ids stay on
+   the host). (a) ``TIER_STEPS`` batches, then the first ``TIER_REFEED``
+   again, at watermarks 0.85 / 0.70, a demotion check every 4 steps: per
+   step the loss, ``n_overflow``, each table's promoted, demoted and
+   spill rows, and of ``pre_step``, the step and ``post_step`` the ms
+   between CUDA events, the host's wall ms and the host syncs (the sync
+   debug mode's warnings); beside it the same batches without tiers
+   (``n_overflow``). K1, K2, P1 (insert, find) and P2 launch counts
+   reset just before the tiered run and read just after, each above 0.
+   The round-trip gate (``_RoundTrip``): the rows of a table's first
+   demotion (values, freqs, versions, accumulators), each checked on the
+   card on its first promotion, bit for bit, ``TIER_GATE_KEYS`` or more.
+   (c) A full save of that state with its spill files, restored into
+   fresh tables and a fresh tiered group: tables and spill stores equal
+   key by key, bit for bit. Then one more ``pre_step`` (of the re-fed
+   batch whose ids the tiers hold most of) and its step, with P1's
+   insert of the promotion into the just-demoted table, P1's find of the
+   resident check, K1's fetch, K2's apply and P2 against their plain
+   versions and timed (the ``tiered`` and ``tiered/promotion`` records).
+   (b) The 65-wide table on three tiers (``HBM_HOST_DISK``,
+   ``TIER_HOST_CAPACITY`` rows of host RAM, the disk tier in a new
+   directory under ``$TMPDIR``, removed after): the same gate, with rows
+   back from disk. (d) ``SparseAdam``: the gate over m and v, K3 on the
+   promoted rows (``tiered/adam``). (e) One NCCL rank (S = 1) of the
+   tiered headline trained on a mesh on the headline's own stream, its
+   ``TieredGroup``'s mesh branch (the all-gather) held at every
+   ``pre_step`` and ``post_step`` against the unsharded branch on a copy
+   of the same state: tables, slot rows, spill stores and tier stats
+   bit-equal; the ``pre_step`` all-gathers counted.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -433,6 +470,30 @@ VARIANT_LIMIT = 2
 VARIANT_POOL = 4
 VARIANT_MESH_STEPS = 3
 TENSIBLE_CAPACITY, TENSIBLE_DIM, TENSIBLE_BATCH = 1 << 16, 64, 16384
+# Phase 25 (s): the headline WDL with multi-tier tables, fed unseen
+# batches of the e2e row's vocabulary (SyntheticCriteo(vocab=TIER_VOCAB,
+# seed=TIER_SEED); the 65-wide table sees ~77,000 distinct ids a batch
+# and passes its 524,288 slots in the 11th): (a) TIER_STEPS batches, then
+# its first TIER_REFEED again, watermarks 0.85 / 0.70, a demotion check
+# every 4 steps; (b) the 65-wide table on three tiers, host_capacity
+# TIER_HOST_CAPACITY, TIER_DISK_STEPS batches and TIER_REFEED again;
+# (d) SparseAdam and (e) one NCCL rank: TIER_SHORT[0] batches, then the
+# first TIER_SHORT[1] again, a check every 2 steps, at watermarks that
+# demote within them: (d) TIER_SHORT_MARKS (the 65-wide table passes 0.4
+# of its slots at step 4), (e) TIER_MESH_MARKS on the headline's own
+# stream (whose 65-wide table holds 7-12 % of its slots in 2-6 steps, and
+# whose steps drop no id: the unsharded step's unique budget would drop
+# ids the sharded one keeps). The round-trip gate: at least
+# TIER_GATE_KEYS keys of a table's first demotion checked bit for bit on
+# their first promotion.
+TIER_VOCAB, TIER_SEED = 200_000, 7
+TIER_STEPS, TIER_REFEED = 24, 4
+TIER_DISK_STEPS = 12
+TIER_HOST_CAPACITY = 65_536
+TIER_SHORT = (6, 2)
+TIER_SHORT_MARKS = (0.4, 0.3)
+TIER_MESH_MARKS = (0.05, 0.03)
+TIER_GATE_KEYS = 1024
 
 
 def log(msg: str):
@@ -3687,6 +3748,587 @@ def phase_variants(tmp: str, gather_err: float, apply_err: float,
     return records
 
 
+@contextlib.contextmanager
+def counting_syncs(dev):
+    """Host syncs inside the block, by the line of the port that waited
+    (the sync debug mode's warnings, as
+    ``tools/profile_train_torch.count_syncs`` counts a step's); the
+    Counter fills when the block ends. Nothing is counted on the CPU."""
+    counts = collections.Counter()
+    if dev.type != "cuda":
+        yield counts
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counts
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        msg = str(w.message)
+        if "synchroniz" not in msg or "prototype" in msg:
+            continue
+        counts[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"] += 1
+
+
+def _timed_part(dev, fn):
+    """``(fn(), CUDA events around it or None, host wall ms, host syncs
+    in it)``."""
+    events = None
+    if dev.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record()
+    t0 = time.perf_counter()
+    with counting_syncs(dev) as syncs:
+        out = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if events is not None:
+        events[1].record()
+    return out, events, host_ms, syncs
+
+
+def _tier_storage(disk_path=None):
+    """Phase 25's storage by table width: both tables ``HBM_HOST``; with
+    ``disk_path``, the 65-wide one ``HBM_HOST_DISK`` there, at
+    ``TIER_HOST_CAPACITY`` rows of host RAM."""
+    from deeprec_tpu_torch import config as cfglib
+    host = cfglib.StorageOption(storage_type=cfglib.StorageType.HBM_HOST)
+    if disk_path is None:
+        return {129: host, 65: host}
+    return {129: host, 65: cfglib.StorageOption(
+        storage_type=cfglib.StorageType.HBM_HOST_DISK,
+        storage_path=disk_path, host_capacity=TIER_HOST_CAPACITY)}
+
+
+def _tier_trainer(dev, storage, sparse_opt="adagrad", mesh=None):
+    """The headline WDL (``bench.build_wdl``) with tiered tables."""
+    from deeprec_tpu_torch import bench
+    return bench.build_wdl(device=dev, sparse_opt=sparse_opt, mesh=mesh,
+                           storage=storage)
+
+
+def _tier_raws(n: int, vocab=TIER_VOCAB, seed=TIER_SEED, rows=BATCH):
+    """``n`` raw batches of a fresh ``SyntheticCriteo`` stream."""
+    from deeprec_tpu_torch.data.criteo import SyntheticCriteo
+    data = SyntheticCriteo(rows, vocab=vocab, seed=seed)
+    return [data.next_batch_np(wide=False) for _ in range(n)]
+
+
+def _width(cfg) -> str:
+    return f"{cfg.dim}-wide"
+
+
+class _RoundTrip:
+    """The round-trip gate of one tiered table: the rows of its first
+    demotion (the spill tiers' export right after it: value rows, freqs,
+    versions, optimizer slot rows), each checked on the card on its
+    first promotion, bit for bit. The check reads the card through the
+    plain probe (``hash_table.find_reference``), so it launches no
+    kernel. A recorded key that comes back otherwise (a lookup inserted
+    it fresh while a capped promotion left it in the tiers; its spill
+    copy is then dropped as stale) leaves the record unchecked."""
+
+    def __init__(self, tname, tiered_table):
+        self.tname, self.t = tname, tiered_table
+        self.rec, self.cand = None, None
+        self.checked = self.from_disk = 0
+        self.recorded = 0
+
+    def _in_store(self, ids):
+        hit = self.t.host.contains_batch(ids)
+        if self.t.cold is not None and len(self.t.cold):
+            hit |= self.t.cold.contains_batch(ids)
+        return hit
+
+    def _keep(self, mask):
+        self.rec = {k: v[mask] for k, v in self.rec.items()}
+
+    def _slots(self, state, ids):
+        from deeprec_tpu_torch.embedding import hash_table as ht
+        from deeprec_tpu_torch.utils import keys as keylib
+        dev = state.values.device
+        hi, lo = keylib.split_ids(ids)
+        return ht.find_reference(state.table, torch.from_numpy(hi).to(dev),
+                                 torch.from_numpy(lo).to(dev),
+                                 self.t.cfg.max_probes).cpu().numpy()
+
+    def after_post(self):
+        if self.rec is None and self.t.stats.demoted:
+            rec = self.t.export_spill()
+            order = np.argsort(rec["keys"], kind="stable")
+            self.rec = {k: v[order] for k, v in rec.items()}
+            self.recorded = int(order.size)
+
+    def before_pre(self, state, batch_ids):
+        """The recorded keys ``pre_step`` may promote: in a tier, asked
+        by the batch, not resident (a resident one's copy is stale:
+        dropped from the record)."""
+        self.cand = None
+        if self.rec is None or not self.rec["keys"].size:
+            return
+        self._keep(self._in_store(self.rec["keys"]))
+        want = np.isin(self.rec["keys"], batch_ids)
+        if not want.any():
+            return
+        cand = self.rec["keys"][want]
+        resident = self._slots(state, cand) < self.t.cfg.capacity
+        self._keep(~np.isin(self.rec["keys"], cand[resident]))
+        self.cand = cand[~resident]
+        self.cand_cold = ~self.t.host.contains_batch(self.cand)
+
+    def after_pre(self, state, slot_state, label):
+        """Compare the candidates that left the tiers (promoted) with
+        their record."""
+        if self.cand is None or not self.cand.size:
+            return
+        gone = ~self._in_store(self.cand)
+        ids = self.cand[gone]
+        if not ids.size:
+            return
+        slots = self._slots(state, ids)
+        if not (slots < self.t.cfg.capacity).all():
+            raise AssertionError(f"phase {label}: {self.tname}: promoted "
+                                 f"keys missing from the table")
+        idx = torch.from_numpy(slots).to(state.values.device).long()
+        pos = np.searchsorted(self.rec["keys"], ids)
+        got = {"values": state.values[idx], "freqs": state.freqs[idx],
+               "versions": state.versions[idx]}
+        for k in self.rec:
+            if k.startswith("slot/"):
+                got[k] = slot_state[k[len("slot/"):]][idx]
+        for k, v in got.items():
+            have = v.cpu().numpy()
+            want = self.rec[k][pos]
+            if not np.array_equal(have.view(np.uint8), want.view(np.uint8)):
+                raise AssertionError(
+                    f"phase {label}: {self.tname}: {k} of promoted keys "
+                    f"differs from their demoted bits")
+        self.checked += int(ids.size)
+        self.from_disk += int(self.cand_cold[gone].sum())
+
+    def after_step(self):
+        """Drop this batch's candidates: the promoted ones are checked,
+        and the step's lookup inserts the others fresh (their spill
+        copies go stale)."""
+        if self.cand is not None:
+            self._keep(~np.isin(self.rec["keys"], self.cand))
+            self.cand = None
+
+
+def _tier_loop(label, tr, tiered, raws, dev, gates=()):
+    """``tiered.pre_step`` (on the raw batch: its ids stay on the host),
+    the train step and ``tiered.post_step`` over ``raws``; per step a
+    line: loss, ``n_overflow``, each tiered table's promoted, demoted,
+    paged-down, spill and disk rows, and of each part the ms between
+    CUDA events, the host's wall ms and the host syncs. Returns the
+    per-step rows."""
+    out = []
+    for i, raw in enumerate(raws):
+        batch = tr.group.pack_batch_np(raw, tr.device)
+        before = tiered.stats()
+        for g in gates:
+            g.before_pre(tr.ts.ev[g.tname],
+                         tiered._batch_ids_for(g.tname, raw))
+        _, e_pre, h_pre, s_pre = _timed_part(
+            dev, lambda: tiered.pre_step(tr.ts, raw))
+        for g in gates:
+            g.after_pre(tr.ts.ev[g.tname], tr.ts.slots[g.tname], label)
+        (tr.ts, m), e_step, h_step, s_step = _timed_part(
+            dev, lambda: tr.step(tr.ts, batch))
+        for g in gates:
+            g.after_step()
+        _, e_post, h_post, s_post = _timed_part(
+            dev, lambda: tiered.post_step(tr.ts))
+        for g in gates:
+            g.after_post()
+        loss, over = float(m["loss"]), int(m["n_overflow"])
+        _sync(dev)
+        if not np.isfinite(loss):
+            raise AssertionError(f"phase {label}: loss {loss} at step {i}")
+        dev_ms = [e[0].elapsed_time(e[1]) if e is not None else None
+                  for e in (e_pre, e_step, e_post)]
+        tables = {}
+        for t, st in tiered.stats().items():
+            b = before[t]
+            tables[_width(tr.group.tables[t])] = {
+                "promoted": st.promoted - b.promoted,
+                "demoted": st.demoted - b.demoted,
+                "paged_down": st.paged_down - b.paged_down,
+                "spill_rows": st.spill_rows, "disk_rows": st.disk_rows}
+        row = {"loss": loss, "n_overflow": over, "tables": tables,
+               "device_ms": dev_ms, "host_ms": [h_pre, h_step, h_post],
+               "syncs": [sum(s.values()) for s in (s_pre, s_step, s_post)],
+               "sync_sites": dict(s_pre + s_step + s_post)}
+        out.append(row)
+        log(f"phase {label} step {i + 1}/{len(raws)}: loss {loss:.6f}, "
+            f"n_overflow {over}; {json.dumps(tables)}; pre_step / step / "
+            f"post_step ms between CUDA events {dev_ms}, host wall ms "
+            f"{[round(h, 3) for h in row['host_ms']]}, host syncs "
+            f"{row['syncs']} {row['sync_sites']}")
+    return out
+
+
+def _tier_summary(rows) -> dict:
+    """Medians of a run's per-part times and the syncs a step."""
+    def med(key, j, pick=lambda r: True):
+        xs = [r[key][j] for r in rows if pick(r) and r[key][j] is not None]
+        return float(np.median(xs)) if xs else None
+
+    demoting = lambda r: any(t["demoted"] for t in r["tables"].values())  # noqa
+    promoting = lambda r: any(t["promoted"] for t in r["tables"].values())  # noqa
+    return {"pre_device_ms": med("device_ms", 0),
+            "pre_host_ms": med("host_ms", 0),
+            "pre_host_ms_promoting": med("host_ms", 0, promoting),
+            "step_device_ms": med("device_ms", 1),
+            "post_host_ms_demoting": med("host_ms", 2, demoting),
+            "post_device_ms_demoting": med("device_ms", 2, demoting),
+            "syncs_per_step": [max(r["syncs"][j] for r in rows)
+                               for j in range(3)],
+            "n_overflow": [r["n_overflow"] for r in rows]}
+
+
+def _gates(tiered):
+    return [_RoundTrip(t, tt) for t, tt in tiered.tiered.items()]
+
+
+def _check_gates(label, gates, min_keys=TIER_GATE_KEYS, from_disk=False):
+    checked = sum(g.checked for g in gates)
+    disk = sum(g.from_disk for g in gates)
+    log(f"phase {label}: round trip: " + "; ".join(
+        f"{g.tname}: {g.recorded} keys recorded at its first demotion, "
+        f"{g.checked} checked on their first promotion ({g.from_disk} "
+        f"from disk), all bit-equal (values, freqs, versions, slot rows)"
+        for g in gates))
+    if checked < min_keys or (from_disk and disk < 1):
+        raise AssertionError(f"phase {label}: {checked} keys checked "
+                             f"({disk} from disk); want {min_keys} or more"
+                             + (" and one from disk" if from_disk else ""))
+
+
+def _tier_kernels(tr, tiered, pool, kind, label):
+    """The kernels on the tiered path's own operands, each against its
+    plain version and timed: one more ``pre_step`` of the batch of
+    ``pool`` whose ids the tiers hold most of (P1's insert of the
+    promotion into the table the last demotion tombstoned, P1's find of
+    the resident check), then that batch's step (K1's fetch of the
+    promoted rows, K2 or K3 applied to them, P1, P2). Returns (promotion
+    probes, resident finds, fetch, applies, step probes, draws)."""
+    def held(raw):
+        n = 0
+        for t, tt in tiered.tiered.items():
+            ids = tiered._batch_ids_for(t, raw)
+            n += int(tt.host.contains_batch(ids).sum())
+            if tt.cold is not None and len(tt.cold):
+                n += int(tt.cold.contains_batch(ids).sum())
+        return n
+
+    raw = max(pool, key=held)
+    with captured_probes() as probes:
+        tiered.pre_step(tr.ts, raw)
+    inserts = [p for p in probes if p[0] == "insert"]
+    finds = [p for p in probes if p[0] == "find"]
+    if not (inserts and finds):
+        raise AssertionError(f"phase {label}: the extra pre_step made "
+                             f"{len(inserts)} promotion inserts and "
+                             f"{len(finds)} resident checks")
+    promo = compare_probes(f"{label} promotion into the demoted table",
+                           inserts)
+    resident = compare_probes(f"{label} resident check", finds)
+    fetch, applies, step_probes, draws = _compare_step_kernels(
+        tr, kind, label, tr.group.pack_batch_np(raw, tr.device))
+    return promo, resident, fetch, applies, step_probes, draws
+
+
+def _by_key(arrays) -> dict:
+    order = np.argsort(arrays["keys"], kind="stable")
+    return {k: np.asarray(v)[order] for k, v in arrays.items()}
+
+
+def _equal_by_key(a, b) -> bool:
+    a, b = _by_key(a), _by_key(b)
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[k].view(np.uint8), b[k].view(np.uint8))
+        for k in a)
+
+
+def _tier_checkpoint(tr, tiered, tmp, label, dev):
+    """(c): a full save with the spill files, restored into fresh tables
+    and a fresh tiered group: every table's rows, freqs, versions and
+    slot rows, and every spill store, equal key by key, bit for bit."""
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    d = os.path.join(tmp, "tiered_ckpt")
+    mgr = ckptlib.CheckpointManager(d, tr.group)
+    mgr.attach_tiered(tiered)
+    t0 = time.perf_counter()
+    path = mgr.save(tr.ts)
+    save_s = time.perf_counter() - t0
+    fresh = mt.TieredGroup(tr.group, tr.ts.slots, high_watermark=0.85,
+                           low_watermark=0.70, demote_every=4)
+    mgr = ckptlib.CheckpointManager(d, tr.group)
+    mgr.attach_tiered(fresh)
+    t0 = time.perf_counter()
+    ts2 = mgr.restore(tr.ts)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    for t, cfg in tr.group.tables.items():
+        a = ckptlib._export_table(cfg, tr.ts.ev[t], tr.ts.slots[t], None)
+        b = ckptlib._export_table(cfg, ts2.ev[t], ts2.slots[t], None)
+        if not _equal_by_key(a, b):
+            raise AssertionError(
+                f"phase {label}: table {t} restored unequal: "
+                f"{a['keys'].size} keys saved, {b['keys'].size} restored "
+                f"of {cfg.capacity} slots")
+    for t, tt in tiered.tiered.items():
+        if not _equal_by_key(tt.export_spill(),
+                             fresh.tiered[t].export_spill()):
+            raise AssertionError(f"phase {label}: spill store of {t} "
+                                 f"restored unequal")
+    files = sorted(f for f in os.listdir(path) if f.startswith("spill-"))
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    log(f"phase {label}: full save with {files} ({nbytes} bytes) in "
+        f"{save_s:.3f} s, restore into fresh tables and a fresh tiered "
+        f"group in {restore_s:.3f} s: every table (keys, rows, freqs, "
+        f"versions, accumulators) and spill store equal, key by key, bit "
+        f"for bit")
+    del ts2, fresh
+    shutil.rmtree(d, ignore_errors=True)
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+
+
+def _tier_two(tmp, dev, gather_err, apply_err, label="25 (a)"):
+    """(a) two tiers, (c) the checkpoint, and the kernels' comparisons;
+    returns the kernels' records and a summary."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    raws = _tier_raws(TIER_STEPS)
+    ref = bench.build_wdl(device=dev)
+    untiered = []
+    for raw in raws:
+        ref.ts, m = ref.step(ref.ts, ref.group.pack_batch_np(raw, dev))
+        untiered.append(int(m["n_overflow"]))
+    log(f"phase {label}: the same {TIER_STEPS} batches without tiers: "
+        f"n_overflow a step {untiered}")
+    del ref
+    _release()
+    tr = _tier_trainer(dev, _tier_storage())
+    tiered = mt.TieredGroup(tr.group, tr.ts.slots, high_watermark=0.85,
+                            low_watermark=0.70, demote_every=4)
+    gates = _gates(tiered)
+    _zoo_counts(reset=True)                    # the tiered path starts here
+    rows = _tier_loop(label, tr, tiered, raws + raws[:TIER_REFEED], dev,
+                      gates)
+    launches = _zoo_counts()                   # the tiered path ends here
+    need = ("gather_rows", "adagrad_apply_rows", "hash_probe_insert",
+            "hash_probe_find", "init_fresh_rows")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"phase {label}: {launches}")
+    _check_gates(label, gates)
+    summary = _tier_summary(rows)
+    summary["untiered_n_overflow"] = untiered
+    log(f"phase {label}: launches {launches}; {json.dumps(summary)}")
+    summary["checkpoint"] = _tier_checkpoint(tr, tiered, tmp, "25 (c)", dev)
+    promo, resident, fetch, applies, probes, draws = _tier_kernels(
+        tr, tiered, raws[TIER_REFEED:2 * TIER_REFEED], "adagrad", label)
+    del tr, tiered, gates
+    _release()
+    records = (_path_records("tiered", launches, fetch, applies, gather_err,
+                             apply_err, probes=probes, draws=draws)
+               + [_probe_record("tiered/promotion", launches, promo),
+                  _probe_record("tiered", launches, resident, kind="find")])
+    return records, summary
+
+
+def _tier_three(dev, label="25 (b)"):
+    """(b) the 65-wide table on three tiers, its disk tier in a new
+    directory under $TMPDIR, removed after the run."""
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    disk = tempfile.mkdtemp(prefix="chip_smoke_cold_")
+    try:
+        tr = _tier_trainer(dev, _tier_storage(disk))
+        tiered = mt.TieredGroup(tr.group, tr.ts.slots, high_watermark=0.85,
+                                low_watermark=0.70, demote_every=4)
+        gates = _gates(tiered)
+        raws = _tier_raws(TIER_DISK_STEPS)
+        _zoo_counts(reset=True)
+        rows = _tier_loop(label, tr, tiered, raws + raws[:TIER_REFEED], dev,
+                          gates)
+        launches = _zoo_counts()
+        _check_gates(label, gates, min_keys=1, from_disk=True)
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(disk) for f in fs)
+        summary = _tier_summary(rows)
+        summary.update(disk_bytes=nbytes, stats={
+            _width(tr.group.tables[t]): vars(st)
+            for t, st in tiered.stats().items()})
+        log(f"phase {label}: launches {launches}; disk tier files "
+            f"{nbytes} bytes; {json.dumps(summary)}")
+        del tr, tiered, gates
+        _release()
+        return summary
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+
+
+def _tier_adam(dev, gather_err, apply_err, label="25 (d)"):
+    """(d) SparseAdam (K3): m and v round-trip; K3 on promoted rows."""
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    tr = _tier_trainer(dev, _tier_storage(), sparse_opt="adam")
+    tiered = mt.TieredGroup(tr.group, tr.ts.slots,
+                            high_watermark=TIER_SHORT_MARKS[0],
+                            low_watermark=TIER_SHORT_MARKS[1],
+                            demote_every=2)
+    gates = _gates(tiered)
+    raws = _tier_raws(TIER_SHORT[0])
+    _zoo_counts(reset=True)
+    rows = _tier_loop(label, tr, tiered, raws + raws[:TIER_SHORT[1]], dev,
+                      gates)
+    launches = _zoo_counts()
+    if min(launches[k] for k in ("adam_apply_rows", "hash_probe_find",
+                                 "hash_probe_insert")) < 1:
+        raise AssertionError(f"phase {label}: {launches}")
+    _check_gates(label, gates)
+    log(f"phase {label}: launches {launches}; "
+        f"{json.dumps(_tier_summary(rows))}")
+    _, _, _, applies, _, _ = _tier_kernels(tr, tiered, raws[2:], "adam",
+                                           label)
+    del tr, tiered, gates
+    _release()
+    return [_record("adam_apply_rows[tiered/adam]",
+                    "deeprec_tpu_torch/csrc/sparse_apply.cu",
+                    "deeprec_tpu/ops/pallas/sparse_apply.py:253",
+                    launches["adam_apply_rows"],
+                    max([apply_err] + [r["max_abs_err"] for r in applies]),
+                    max(applies, key=lambda r: r["bound_ms"]),
+                    "tiered/adam")]
+
+
+def _tier_mesh_run(mesh, tmp) -> dict:
+    """(e) on one rank: the tiered headline trained sharded over ``mesh``
+    on the headline's own stream, its ``TieredGroup``'s mesh branch (the
+    ids all-gathered, the rank promoting those it owns) held at every
+    ``pre_step`` and ``post_step`` against the unsharded branch run on a
+    copy of the same state (the device tables and slots copied into an
+    unsharded trainer's just before): the tables, slot rows, spill tiers
+    and tier stats after each must be bit-equal. (A whole unsharded run
+    is no reference here: its inserts claim other slots than the
+    sharded step's, and LRU demotion breaks ties of equal versions by
+    slot, so the two demote other keys.) The ``pre_step`` all-gathers
+    are counted."""
+    from deeprec_tpu_torch.data.criteo import CRITEO_HASH_BUCKETS
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    dev, S, r = mesh.device, mesh.size, mesh.rank
+    label = f"25 (e) rank {r} of {S}"
+    tr = _tier_trainer(dev, _tier_storage(), mesh=mesh)
+    ref = _tier_trainer(dev, _tier_storage())
+    kw = dict(high_watermark=TIER_MESH_MARKS[0],
+              low_watermark=TIER_MESH_MARKS[1], demote_every=2)
+    tiered = mt.TieredGroup(tr.group, tr.ts.slots, mesh=mesh, **kw)
+    rtiered = mt.TieredGroup(ref.group, ref.ts.slots, **kw)
+    raws = _tier_raws(TIER_SHORT[0], vocab=CRITEO_HASH_BUCKETS, seed=0,
+                      rows=BATCH * S)
+
+    def tensors(ts):
+        for t in sorted(ts.ev):
+            st = ts.ev[t]
+            yield from (st.table.key_rows, st.values, st.freqs, st.versions)
+            yield from (ts.slots[t][k] for k in sorted(ts.slots[t]))
+
+    def copy_state():
+        for dst, src in zip(tensors(ref.ts), tensors(tr.ts)):
+            dst.copy_(src)
+
+    def check(what, i):
+        same = all(torch.equal(a, b)
+                   for a, b in zip(tensors(tr.ts), tensors(ref.ts)))
+        for t, tt in tiered.tiered.items():
+            a, b = tt.export_spill(), rtiered.tiered[t].export_spill()
+            same = same and sorted(a) == sorted(b) and all(
+                np.array_equal(a[k].view(np.uint8), b[k].view(np.uint8))
+                for k in a) and vars(tt.stats) == vars(
+                    rtiered.tiered[t].stats)
+        if not same:
+            raise AssertionError(f"phase {label}: step {i} {what}: the mesh "
+                                 f"branch differs from the unsharded one")
+
+    losses, gathers = [], 0
+    mesh.trace = []
+    for i, raw in enumerate(raws + raws[:TIER_SHORT[1]]):
+        local = {k: v[r * BATCH:(r + 1) * BATCH] for k, v in raw.items()}
+        copy_state()
+        n0 = len(mesh.trace)
+        tiered.pre_step(tr.ts, local)
+        gathers += sum(x["kind"] == "all_gather" for x in mesh.trace[n0:])
+        rtiered.pre_step(ref.ts, raw)
+        check("pre_step", i)
+        tr.ts, m = tr.step(tr.ts, tr.group.pack_batch_np(local, dev))
+        copy_state()
+        tiered.post_step(tr.ts)
+        rtiered.post_step(ref.ts)
+        check("post_step", i)
+        losses.append(float(m["loss"]))
+    mesh.trace = None
+    stats = {t: vars(st) for t, st in tiered.stats().items()}
+    demoted = sum(st["demoted"] for st in stats.values())
+    promoted = sum(st["promoted"] for st in stats.values())
+    if not (demoted and promoted and gathers and np.isfinite(losses).all()):
+        raise AssertionError(f"phase {label}: demoted {demoted}, promoted "
+                             f"{promoted}, all-gathers {gathers}, losses "
+                             f"{losses}")
+    return {"losses": losses, "stats": stats, "gathers": gathers}
+
+
+def _tier_rank(rank, world, tmp, card, draws):
+    """The spawned NCCL rank of phase 25 (e); writes its results to
+    ``tmp/tier-r<rank>.json``."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    CARD.update(card)
+    DRAW_INSTRUCTIONS.update(draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(
+        backend="nccl", rank=rank, world_size=world, device="cuda",
+        init_method="file://" + os.path.join(tmp, "store-tier"))
+    try:
+        out = _tier_mesh_run(meshlib.data_mesh(world), tmp)
+        with open(os.path.join(tmp, f"tier-r{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tiered(tmp: str, gather_err: float, apply_err: float,
+                 device="cuda") -> list:
+    """Phase 25 (s): multi-tier storage; see the module's docstring.
+    Returns the kernels' records of the ``tiered*`` paths."""
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    records, summary = _tier_two(tmp, dev, gather_err, apply_err)
+    summary["three_tier"] = _tier_three(dev)
+    records += _tier_adam(dev, gather_err, apply_err)
+    if dev.type == "cuda":
+        import torch.multiprocessing as mp
+        t0 = time.perf_counter()
+        mp.spawn(_tier_rank, nprocs=1, join=True, args=(
+            1, tmp, dict(CARD), dict(DRAW_INSTRUCTIONS)))
+        with open(os.path.join(tmp, "tier-r0.json")) as f:
+            res = json.load(f)
+        log(f"phase 25 (e) nccl rank 0 of 1: losses {res['losses']}; "
+            f"pre_step all-gathers {res['gathers']}; tier stats "
+            f"{res['stats']}; the mesh branch bit-equal to the unsharded "
+            f"one at every pre_step and post_step; "
+            f"{time.perf_counter() - t0:.3f} s")
+    log(f"phase 25 (s): multi-tier storage in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return records
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3754,6 +4396,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as d:
         variant_records = phase_variants(d, gather_err, apply_err)
     _release()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiered_") as d:
+        tier_records = phase_tiered(d, gather_err, apply_err)
+    _release()
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -3776,7 +4421,7 @@ def main():
         + _path_records("sharded", sh_launches, sh["fetch"], sh["applies"],
                         gather_err, apply_err, probes=sh["probes"],
                         draws=sh["draws"])
-        + variant_records)
+        + variant_records + tier_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

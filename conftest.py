@@ -64,12 +64,14 @@ FILE_SECONDS = {
     "tests/test_twoprocess.py": 23.6,
     "tests/test_torch_variable.py": 23.1,
     "tests/test_adaptive_sharded.py": 23.1,
+    "tests/test_torch_multi_tier.py": 22.2,
     "tests/test_torch_hash_probe.py": 20.3,
     "tests/test_ops_tools.py": 20.1,
     "tests/test_torch_optimizers.py": 19.9,
     "tests/test_kserve.py": 19.2,
     "tests/test_torch_wdl.py": 18.7,
     "tests/test_pallas_apply.py": 16.2,
+    "tests/test_torch_multi_tier_mesh.py": 13.9,
     "tests/test_weighted_column.py": 13.7,
     "tests/test_adaptive_group.py": 13.1,
     "tests/test_torch_occ_lookup.py": 12.2,

@@ -138,7 +138,7 @@ def _assemble(cols, hidden, dtype, device, sparse_opt, data, *,
 def build_wdl(reference_shapes: bool = True, device="cuda",
               sparse_opt="adagrad", static_buckets: bool = False,
               batch: int = BATCH, mesh=None,
-              group_kw=None) -> Trainer:
+              group_kw=None, storage=None) -> Trainer:
     """The ``bench.py`` WDL at B = ``batch`` (16,384): reference shapes
     (the headline; with ``static_buckets``, the static row), or uniform
     dim 16 over ids of a 200,000 vocabulary. ``sparse_opt``: a name of
@@ -148,7 +148,11 @@ def build_wdl(reference_shapes: bool = True, device="cuda",
     (``group_kw``: further ``EmbeddingGroup`` arguments, such as a
     ``placement``), the stream's batches are global, ``batch`` rows a
     rank, and the trainer is this rank's; every rank builds the same
-    tower weights."""
+    tower weights. ``storage``: the tables' ``config.StorageOption``
+    by the deep table's width (a coalesced table holds the columns of
+    one width: 129 and 65 at reference shapes), for the multi-tier runs
+    (``embedding.multi_tier.TieredGroup``); a tiered table records freq
+    and version."""
     if mesh is not None:
         group_kw = dict(axis_name=mesh.axis_name, num_shards=mesh.size,
                         **(group_kw or {}))
@@ -158,6 +162,10 @@ def build_wdl(reference_shapes: bool = True, device="cuda",
                               reference_shapes=reference_shapes,
                               wide_in_deep=True, ev_option=evo,
                               static_buckets=static_buckets)
+    if storage:
+        cols = [dataclasses.replace(c, ev_option=dataclasses.replace(
+                    evo, storage_option=storage[c.dim]))
+                if getattr(c, "dim", None) in storage else c for c in cols]
     data = SyntheticCriteo(
         batch * (1 if mesh is None else mesh.size),
         vocab=CRITEO_HASH_BUCKETS if reference_shapes else 200_000, seed=0)

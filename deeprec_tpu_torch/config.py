@@ -16,8 +16,10 @@ import torch
 
 
 class StorageType(enum.Enum):
-    """Where a table's rows live. Only ``HBM`` (device memory) is
-    ported; the host and disk tiers raise at table creation."""
+    """Where a table's rows live: device memory only (``HBM``), or a
+    device hot tier with a host-RAM spill tier (``HBM_HOST``) and a disk
+    tier below it (``HBM_HOST_DISK``), which
+    ``embedding.multi_tier.TieredGroup`` runs."""
 
     HBM = "hbm"
     HBM_HOST = "hbm_host"
@@ -63,6 +65,19 @@ class L2WeightEvict:
 
 
 @dataclasses.dataclass(frozen=True)
+class StorageOption:
+    """Storage tiers of one table."""
+
+    storage_type: StorageType = StorageType.HBM
+    # Max rows kept in HBM when a host spill tier is configured.
+    hbm_capacity: Optional[int] = None
+    # HBM_HOST_DISK: directory for the cold-tier value logs and max
+    # rows kept in host RAM before paging down.
+    storage_path: Optional[str] = None
+    host_capacity: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class EmbeddingVariableOption:
     """Option bundle of one table (``tf.EmbeddingVariableOption``).
 
@@ -70,12 +85,13 @@ class EmbeddingVariableOption:
     row ``key % default_value_dim``. ``record_freq`` /
     ``record_version``: whether per-step metadata is tracked (see
     ``embedding.variable._tracking``; an ``evict_option`` forces
-    version tracking).
+    version tracking; a tiered ``storage_option`` forces both).
     """
 
     filter_option: Optional[CounterFilter | CBFFilter] = None
     evict_option: Optional[GlobalStepEvict | L2WeightEvict] = None
-    storage_type: StorageType = StorageType.HBM
+    storage_option: StorageOption = dataclasses.field(
+        default_factory=StorageOption)
     default_value_dim: int = 1
     record_freq: bool = True
     record_version: bool = True

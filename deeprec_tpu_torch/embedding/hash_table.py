@@ -334,9 +334,8 @@ def remove_slots(table: HashTable, slot_mask) -> HashTable:
     inserts. Returns ``table``."""
     kp = table.key_pair
     kill = slot_mask.to(torch.bool) & live_mask(table)
-    tomb = torch.tensor([keylib.TOMB_HI, keylib.TOMB_LO], dtype=torch.int32,
-                        device=kp.device)
-    kp.copy_(torch.where(kill[:, None], tomb[None, :], kp))
+    kp[:, 0].masked_fill_(kill, keylib.TOMB_HI)
+    kp[:, 1].masked_fill_(kill, keylib.TOMB_LO)
     return table
 
 

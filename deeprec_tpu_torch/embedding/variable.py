@@ -82,14 +82,6 @@ class OccLookup(NamedTuple):
     #                           ids the table could not place
 
 
-def _check_ported(cfg: cfglib.TableConfig):
-    ev = cfg.ev_option
-    if ev.storage_type != cfglib.StorageType.HBM:
-        raise NotImplementedError(
-            f"table {cfg.name}: multi-tier storage "
-            f"({ev.storage_type.value}) is not ported")
-
-
 # Rows of a static matrix drawn per init_rows call: the hash grid of a
 # chunk is int64 [rows, dim], so the 1.7M x 129 reference matrix is made
 # in pieces of ~70 MB rather than in several GB of intermediates.
@@ -131,7 +123,6 @@ def create(cfg: cfglib.TableConfig, device, salt: int = 0, shard: int = 0,
     table's shard ``shard`` of ``num_shards`` (``sharded.create_shard``)
     holds global slot ``r * num_shards + shard`` at local row ``r``; an
     EV table's shards start empty alike."""
-    _check_ported(cfg)
     capacity, dim = cfg.capacity, cfg.dim
     dvd = max(1, cfg.ev_option.default_value_dim)
     if cfg.initializer in ("zeros", "constant"):
@@ -171,10 +162,11 @@ def _tracking(cfg: cfglib.TableConfig) -> tuple[bool, bool]:
     """(track_freq, track_version): whether per-step metadata updates
     run. ``record_freq/record_version=False`` elide them unless a
     subsystem needs them (counter filter and dyn-dim need freqs,
-    eviction needs versions)."""
+    eviction needs versions, multi-tier storage needs both: LFU ranks
+    by freq, LRU by version)."""
     ev = cfg.ev_option
     f = ev.filter_option
-    tiered = ev.storage_type != cfglib.StorageType.HBM
+    tiered = ev.storage_option.storage_type != cfglib.StorageType.HBM
     track_freq = (ev.record_freq
                   or (isinstance(f, cfglib.CounterFilter)
                       and f.filter_freq > 0)
@@ -632,34 +624,62 @@ def export_arrays(cfg: cfglib.TableConfig, state: EVState) -> dict[str, np.ndarr
     return out
 
 
+def _to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array as a tensor on ``dev``; on a card staged in pinned
+    memory and copied with ``non_blocking=True`` on the current stream
+    (no host wait)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def import_arrays(cfg: cfglib.TableConfig, state: EVState,
                   arrays: dict[str, np.ndarray], partition_id: int = 0,
                   partition_num: int = 1, chunk: int = 8192,
-                  extra_targets: Optional[dict[str, torch.Tensor]] = None):
+                  extra_targets: Optional[dict[str, torch.Tensor]] = None,
+                  return_mask: bool = False):
     """Bulk-insert rows (keys, values, freqs, versions) into ``state``,
     in place, ``chunk`` keys at a time, keeping only the keys of
     partition ``partition_id`` of ``partition_num``: restore-time
     re-sharding, so a checkpoint of any shard count restores onto any
     other. An EV key belongs to the partition its shard hash names
-    (``keys.shard_of_np``). Rows whose probe overflows the table are
-    dropped, as in the JAX package.
+    (``keys.shard_of_np``). Ids the probe leaves unplaced at its round
+    cap (``find_or_insert``'s ``max_rounds``, reached when many ids of a
+    chunk start in one bucket row, as keys exported in slot order do)
+    are inserted again, in a pass of their own, while a pass places
+    any; the JAX package drops them. Ids whose probe window is full are
+    dropped, as in the JAX package. The host arrays go to a card through
+    pinned memory, asynchronously; a pass reads its placed mask back
+    (one host read).
 
     ``extra_targets``: further row-aligned ``[C+1, ...]`` tensors (an
     optimizer's slot rows) written at the same slots, in place, from
     ``arrays["slot/<name>"]``. Returns ``state``, or ``(state,
     extra_targets)`` when they are given.
 
+    ``return_mask``: also return a host bool mask over ``arrays["keys"]``
+    of the rows that landed in the table (last in the returned tuple): a
+    caller moving rows out of another tier keeps the source copy of a
+    row the table dropped.
+
     A CBF table takes its counters from ``arrays["bloom"]`` where
     given. A static table takes the keys as global row indices: with
     ``partition_num > 1`` it keeps the rows ``g % partition_num ==
     partition_id`` at local row ``g // partition_num``; rows beyond its
-    ``N`` are dropped."""
+    ``N`` are dropped (its mask marks the partition's rows, as the JAX
+    package's does)."""
     ids = np.asarray(arrays["keys"], np.int64)
     if cfg.static_buckets:
-        return _import_static(cfg, state, ids, arrays, extra_targets,
-                              partition_id, partition_num)
+        out = _import_static(cfg, state, ids, arrays, extra_targets,
+                             partition_id, partition_num)
+        if not return_mask:
+            return out
+        keep = (ids % partition_num == partition_id if partition_num > 1
+                else np.ones(ids.shape[0], bool))
+        return (*out, keep) if extra_targets is not None else (out, keep)
     keep = (keylib.shard_of_np(ids, partition_num) == partition_id
-            if partition_num > 1 else slice(None))
+            if partition_num > 1 else np.ones(ids.shape[0], bool))
     ids = ids[keep]
     vals = np.asarray(arrays["values"])[keep]
     freqs = np.asarray(arrays["freqs"]).astype(np.int32)[keep]
@@ -668,37 +688,49 @@ def import_arrays(cfg: cfglib.TableConfig, state: EVState,
               for name in (extra_targets or {})}
     dev = state.values.device
     capacity = cfg.capacity
+    landed = np.zeros(ids.shape[0], bool)
     if "bloom" in arrays and isinstance(cfg.ev_option.filter_option,
                                         cfglib.CBFFilter):
-        state.bloom = torch.from_numpy(
-            np.array(arrays["bloom"], np.int32)).to(dev)
+        state.bloom = _to_device(np.array(arrays["bloom"], np.int32), dev)
     for start in range(0, ids.shape[0], chunk):
-        end = min(start + chunk, ids.shape[0])
-        batch = np.concatenate(
-            [ids[start:end],
-             np.full(chunk - (end - start), keylib.EMPTY_ID, np.int64)])
-        hi, lo = keylib.split_ids(batch)
-        _, slots, _ = ht.find_or_insert(
-            state.table, torch.from_numpy(hi).to(dev),
-            torch.from_numpy(lo).to(dev),
-            torch.ones(chunk, dtype=torch.bool, device=dev),
-            max_probes=cfg.max_probes)
-        slots = slots[: end - start].to(torch.int64)
-        ok = slots < capacity
-        w = slots[ok]
+        pending = np.arange(start, min(start + chunk, ids.shape[0]))
+        while pending.size:
+            batch = np.concatenate(
+                [ids[pending],
+                 np.full(chunk - pending.size, keylib.EMPTY_ID, np.int64)])
+            hi, lo = keylib.split_ids(batch)
+            _, slots, _ = ht.find_or_insert(
+                state.table, _to_device(hi, dev), _to_device(lo, dev),
+                torch.ones(chunk, dtype=torch.bool, device=dev),
+                max_probes=cfg.max_probes)
+            widx, ok = _drop_idx(slots[: pending.size], capacity)
 
-        def put(dst, src):
-            dst[w] = torch.from_numpy(src[start:end]).to(dev)[ok].to(
-                dst.dtype)
+            def put(dst, src):
+                # A dropped row writes row C's own content back to row C.
+                rows = _to_device(src[pending], dev).to(dst.dtype)
+                keep_row = ok.reshape((-1,) + (1,) * (rows.dim() - 1))
+                dst.index_put_((widx,), torch.where(keep_row, rows,
+                                                    dst[capacity]))
 
-        put(state.values, vals)
-        put(state.freqs, freqs)
-        put(state.versions, versions)
-        for name, src in extras.items():
-            put(extra_targets[name], src)
-    if extra_targets is not None:
-        return state, extra_targets
-    return state
+            put(state.values, vals)
+            put(state.freqs, freqs)
+            put(state.versions, versions)
+            for name, src in extras.items():
+                put(extra_targets[name], src)
+            placed = ok.cpu().numpy()
+            landed[pending[placed]] = True
+            # Ids still pending at the probe's round cap (many ids of
+            # one bucket row, as in slot order) go again, while a pass
+            # places any; the JAX package drops them.
+            if not placed.any():
+                break
+            pending = pending[~placed]
+    out = (state, extra_targets) if extra_targets is not None else (state,)
+    if return_mask:
+        full = np.zeros(keep.shape[0], bool)
+        full[np.nonzero(keep)[0]] = landed
+        return (*out, full)
+    return out if extra_targets is not None else state
 
 
 def _import_static(cfg: cfglib.TableConfig, state: EVState, ids: np.ndarray,

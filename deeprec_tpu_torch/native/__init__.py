@@ -1,7 +1,8 @@
-"""The port's native host parser: ``host_ops.cc`` through ``ctypes``.
+"""The port's native host ops: ``host_ops.cc`` through ``ctypes``.
 
 Port of the Criteo half of ``deeprec_tpu/native``: the fused TSV
-parser (the reference's TransCsv role). The
+parser (the reference's TransCsv role), and ``hash64``, the splitmix64
+id hash the host spill tier's index probes with. The
 library is built with ``g++`` at the first call into ``build/native/``
 (``ops/kernels/build.load_host_library``). Unlike the JAX package's
 loader there is no numpy fallback: a failed build raises, and the
@@ -33,6 +34,9 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int, f32p, f32p, i64p, i64p]
             lib.drt_parse_criteo.restype = ctypes.c_int64
+            lib.drt_hash64.argtypes = [i64p, ctypes.c_int64,
+                                       ctypes.c_uint64, i64p]
+            lib.drt_hash64.restype = None
             _lib = lib
         return _lib
 
@@ -56,3 +60,14 @@ def parse_criteo(data: bytes, max_rows: int):
         _ptr(labels, ctypes.c_float), _ptr(dense, ctypes.c_float),
         _ptr(cats, ctypes.c_int64), _ptr(consumed, ctypes.c_int64))
     return int(rows), labels, dense, cats, int(consumed[0])
+
+
+def hash64(ids: np.ndarray, salt: int = 0) -> np.ndarray:
+    """splitmix64 of each int64 id XOR ``salt``, as int64 (the JAX
+    package's ``native.hash64``, bit for bit)."""
+    ids = np.ascontiguousarray(ids, np.int64)
+    out = np.empty(ids.shape, np.int64)
+    _library().drt_hash64(_ptr(ids.reshape(-1), ctypes.c_int64), ids.size,
+                          ctypes.c_uint64(salt & (2**64 - 1)),
+                          _ptr(out.reshape(-1), ctypes.c_int64))
+    return out

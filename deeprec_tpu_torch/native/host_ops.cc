@@ -1,11 +1,12 @@
-// Host-side Criteo TSV parser of the PyTorch port's input pipeline.
+// Host-side ops of the PyTorch port: the Criteo TSV parser of the input
+// pipeline and the id hash of the host spill tier's index.
 //
-// Copy of the parser half of the JAX package's deeprec_tpu/native/host_ops.cc
-// (mix64, parse_float, parse_cat_token, drt_parse_criteo),
+// Copy of the JAX package's deeprec_tpu/native/host_ops.cc parser half
+// (mix64, parse_float, parse_cat_token, drt_parse_criteo) and drt_hash64,
 // kept here so the port builds its own library and imports nothing of the
 // JAX package. The arithmetic is the same line for line, so both parse a
-// file to the same bits. Plain C ABI, bound through ctypes; every buffer
-// is caller-allocated.
+// file to the same bits and hash an id to the same value. Plain C ABI,
+// bound through ctypes; every buffer is caller-allocated.
 
 #include <cstdint>
 #include <cstring>
@@ -18,6 +19,14 @@ static inline uint64_t mix64(uint64_t x) {
   x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
   x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
   return x ^ (x >> 31);
+}
+
+// mix64 of each id XOR salt (the host index's probe start,
+// embedding/multi_tier.py).
+void drt_hash64(const int64_t* in, int64_t n, uint64_t salt, int64_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    out[i] = (int64_t)mix64((uint64_t)in[i] ^ salt);
+  }
 }
 
 // Criteo-Kaggle TSV: label \t I1..I13 \t C1..C26 (hex). A missing

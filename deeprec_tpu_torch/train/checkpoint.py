@@ -35,8 +35,16 @@ Restore fills what the template state carries: a template without
 optimizer state (serving) skips the ``slot/*``, ``scalar/*`` and
 ``dense_opt`` leaves. A delta's ``bloom`` replaces the counters; its
 ``tombstones`` are deleted after its rows are written, so an evicted
-key does not come back and a re-inserted one stays. Multi-tier spill
-files raise ``NotImplementedError``.
+key does not come back and a re-inserted one stays.
+
+With a ``TieredGroup`` attached (``attach_tiered``), every save, full
+and incremental, also writes each table's spill tiers (host and disk
+rows, the 4-tensor format plus ``slot/<name>`` rows) as
+``spill-<name>-s<shard>.npz`` wherever they hold keys; on a mesh each
+rank writes its shard's. A restore hands every spill file of each
+applied checkpoint to the group's ``import_spill``, which keeps the keys
+this rank owns, so spill files too restore at any shard count and
+cross between the packages.
 """
 
 from __future__ import annotations
@@ -203,6 +211,8 @@ class CheckpointManager:
         # name -> (get_state, set_state), JSON-serializable state.
         self._aux: Dict[str, tuple[Callable[[], Any],
                                    Callable[[Any], None]]] = {}
+        # The multi-tier spill stores riding every checkpoint.
+        self._tiered = None
         if self.rank == 0:
             os.makedirs(directory, exist_ok=True)
         self._barrier()
@@ -218,6 +228,12 @@ class CheckpointManager:
         it by every applied checkpoint that holds it (the newest
         wins)."""
         self._aux[name] = (get_state, set_state)
+
+    def attach_tiered(self, tiered_group):
+        """Save ``tiered_group``'s spill rows (an
+        ``embedding.multi_tier.TieredGroup``) with every checkpoint and
+        import them, re-bucketed to this rank, on restore."""
+        self._tiered = tiered_group
 
     def shrink_tables(self, ts: TrainState,
                       global_step: Optional[int] = None) -> TrainState:
@@ -279,6 +295,12 @@ class CheckpointManager:
                 if si == 0:
                     arrs["tombstones"] = tombs
             np.savez(os.path.join(tmp, f"table-{tname}-s{si}.npz"), **arrs)
+        if self._tiered is not None:
+            for tname, shards in self._tiered.export_spill().items():
+                for si, arrs in shards.items():
+                    if len(arrs["keys"]):
+                        np.savez(os.path.join(
+                            tmp, f"spill-{tname}-s{si}.npz"), **arrs)
         if lead:
             if self._aux:
                 with open(os.path.join(tmp, "aux.json"), "w") as f:
@@ -358,11 +380,17 @@ class CheckpointManager:
         path = os.path.join(self.dir, name)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        spills = [fn for fn in os.listdir(path) if fn.startswith("spill-")]
-        if spills:
-            raise NotImplementedError(
-                f"{name}: multi-tier spill rows ({spills[0]}) are not "
-                "ported")
+        if self._tiered is not None:
+            blob: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {}
+            for fn in os.listdir(path):
+                m = re.match(r"spill-(.+)-s(\d+)\.npz$", fn)
+                if m:
+                    with np.load(os.path.join(path, fn),
+                                 allow_pickle=False) as z:
+                        blob.setdefault(m.group(1), {})[int(m.group(2))] = \
+                            dict(z)
+            if blob:
+                self._tiered.import_spill(blob)
         params, dense_opt = ts.params, ts.dense_opt
         dense_path = os.path.join(path, "dense.npz")
         if os.path.exists(dense_path):

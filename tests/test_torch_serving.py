@@ -263,6 +263,7 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.embedding.dyn_dim, "
         "deeprec_tpu_torch.embedding.multi_hash, "
         "deeprec_tpu_torch.embedding.tensible, "
+        "deeprec_tpu_torch.embedding.multi_tier, "
         "deeprec_tpu_torch.parallel.mesh, "
         "deeprec_tpu_torch.parallel.multihost, "
         "deeprec_tpu_torch.train.estimator, deeprec_tpu_torch.train.metrics, "
@@ -282,7 +283,7 @@ def test_port_never_imports_jax():
         "import zoo_auc_torch, zoo_delta_torch, model_benchmark_torch, "
         "write_bench_zoo_torch, serving_benchmark_torch, "
         "step_breakdown_torch, kernel_benchmark_torch, env_collect_torch, "
-        "chip_smoke\n"
+        "bench_hostkv_torch, chip_smoke\n"
         "env_collect_torch.collect(touch_device=False)\n"
         "train_zoo_torch.columns(train_zoo_torch.parse_args(\n"
         "    ['wdl', '--ev', '--cbf', '--filter_freq', '2']))\n"

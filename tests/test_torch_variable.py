@@ -137,7 +137,17 @@ def test_unported_table_options_raise():
         "t", 4, 64, ev_option=tcfg.EmbeddingVariableOption(
             filter_option=tcfg.CBFFilter(2, num_counters=256))), "cpu")
     assert st.bloom.shape == (256,) and st.bloom.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="multi-tier"):
-        tev.create(tcfg.TableConfig(
-            "t", 4, 64, ev_option=tcfg.EmbeddingVariableOption(
-                storage_type=tcfg.StorageType.HBM_HOST)), "cpu")
+    # Multi-tier storage is ported: a tiered table is an ordinary device
+    # table whose freq and version tracking is forced on (LFU ranks by
+    # freq, LRU by version), as in the JAX package.
+    for kind in ("HBM_HOST", "HBM_HOST_DISK"):
+        opts = [pkg.EmbeddingVariableOption(
+            record_freq=False, record_version=False,
+            storage_option=pkg.StorageOption(
+                storage_type=getattr(pkg.StorageType, kind)))
+            for pkg in (tcfg, jcfg)]
+        tc, jc = (pkg.TableConfig("t", 4, 64, ev_option=o)
+                  for pkg, o in zip((tcfg, jcfg), opts))
+        st = tev.create(tc, "cpu")
+        assert st.values.shape == (65, 4) and st.freqs.shape == (65,)
+        assert tev._tracking(tc) == jev._tracking(jc) == (True, True)

@@ -391,5 +391,154 @@ def variants(mesh, tmp, kinds, steps: int):
     return out
 
 
+# -- multi-tier storage on the mesh (tests/test_torch_multi_tier_mesh.py) ----
+
+TIER_B = 16          # global rows a step, one id a row
+TIER_CAPACITY = 128  # the table's capacity (64 a shard at S = 2)
+TIER_FLOOD = 6       # batches of fresh ids between the first and its return
+
+
+class DenseSGD:
+    """``optax.sgd`` for the port's dense params: ``p - lr * g``."""
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params):
+        return {}
+
+    def apply(self, params, grads, state):
+        for k, g in grads.items():
+            params[k].sub_(self.lr * g)
+
+
+def tier_batches():
+    """Global id vectors: ids 1..16, ``TIER_FLOOD`` batches of fresh
+    ids, then ids 1..16 again."""
+    first = np.arange(1, TIER_B + 1, dtype=np.int64)
+    flood = [np.arange(1000 + TIER_B * s, 1000 + TIER_B * (s + 1),
+                       dtype=np.int64) for s in range(TIER_FLOOD)]
+    return [first] + flood + [first]
+
+
+def tier_model(cfgm, fc, num_shards=None):
+    """The multi-tier test model's group in either package (``cfgm``,
+    ``fc``: its ``config`` and ``feature_column``): one 4-wide HBM_HOST
+    column, zeros initializer, a bag of one id a row."""
+    evo = cfgm.EmbeddingVariableOption(storage_option=cfgm.StorageOption(
+        storage_type=cfgm.StorageType.HBM_HOST))
+    cols = [fc.EmbeddingColumn(name="f", dim=4, capacity=TIER_CAPACITY,
+                               initializer="zeros", combiner="sum",
+                               ev_option=evo)]
+    kw = ({} if num_shards is None
+          else dict(axis_name="data", num_shards=num_shards))
+    return fc.EmbeddingGroup(cols, **kw)
+
+
+def tier_run(mesh, ckpt=None, gather=True):
+    """The port's tiered model trained on :func:`tier_batches` (on a
+    mesh, each rank on its rows): the first batch, the flood (demotions
+    every step at watermarks 0.5 / 0.25), a save to ``ckpt`` and the
+    spill store then, and the first batch's ids promoted back. Returns
+    the losses, the store's export after the flood (``spill/<field>``),
+    the first step's eval embeddings (``first``), the same batch's
+    after the promotion (``back``) and the keys each tier held just
+    before it (``before/store``, ``before/resident``). ``gather=False``
+    promotes only the ids of this rank's own rows (the all-gather
+    skipped), for the test that needs the gather."""
+    from deeprec_tpu_torch import config as tcfg
+    from deeprec_tpu_torch.embedding import hash_table as ht
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    from deeprec_tpu_torch.feature_column import feature_column as fc
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    from deeprec_tpu_torch.utils import keys as keylib
+    group = tier_model(tcfg, fc, None if mesh is None else mesh.size)
+    sopt, dopt = sparse_lib.SparseSGD(0.5), DenseSGD(0.1)
+    ts = trainlib.create_train_state(group, {"w": torch.ones(4)}, dopt,
+                                     sopt, "cpu", mesh)
+    step = trainlib.make_train_step(
+        group, lambda p, e, b: (e["f"] * p["w"]).sum(dim=1),
+        lambda out, b: (out - b["label"]) ** 2, sopt, dopt, mesh=mesh)
+    embs = trainlib.make_eval_step(group, lambda p, e, b: e["f"], mesh)
+    tiered = mt.TieredGroup(group, ts.slots, high_watermark=0.5,
+                            low_watermark=0.25, demote_every=1, mesh=mesh)
+    if not gather:
+        tiered._owned_ids = lambda t, ids: ids
+    r, S = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    bl = TIER_B // S
+
+    def local(ids):
+        mine = ids[r * bl:(r + 1) * bl, None]
+        return {"f": fc.SparseIds.from_numpy(mine, "cpu"),
+                "label": torch.ones(bl)}
+
+    batches = tier_batches()
+    out, losses = {}, []
+    for i, ids in enumerate(batches[:-1]):
+        b = local(ids)
+        ts = tiered.pre_step(ts, b)
+        ts, m = step(ts, b)
+        ts = tiered.post_step(ts)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            out["first"] = embs(ts, b).numpy()
+    out["loss"] = np.array(losses)
+    out.update({f"spill/{k}": v for k, v in
+                tiered.export_spill()["f"][r].items()})
+    if ckpt is not None:
+        mgr = ckptlib.CheckpointManager(ckpt, group, mesh=mesh)
+        mgr.attach_tiered(tiered)
+        mgr.save(ts)
+    first = batches[-1]
+    out["before/store"] = first[tiered.tiered["f"].host.contains_batch(
+        first)]
+    hi, lo = keylib.split_ids(first)
+    found = ht.find(ts.ev["f"].table, torch.from_numpy(hi),
+                    torch.from_numpy(lo))
+    out["before/resident"] = first[found.numpy() < group.tables["f"].capacity]
+    b = local(first)
+    ts = tiered.pre_step(ts, b)
+    out["back"] = embs(ts, b).numpy()
+    out["promoted"] = np.array(tiered.stats()["f"].promoted)
+    return out
+
+
+def tier_restore(mesh, ckpt):
+    """A fresh tiered model on ``mesh`` (None: one device) restored from
+    ``ckpt`` with its spill files: the store's export (``spill/``)."""
+    from deeprec_tpu_torch import config as tcfg
+    from deeprec_tpu_torch.embedding import multi_tier as mt
+    from deeprec_tpu_torch.feature_column import feature_column as fc
+    from deeprec_tpu_torch.optimizers import sparse as sparse_lib
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    group = tier_model(tcfg, fc, None if mesh is None else mesh.size)
+    sopt = sparse_lib.SparseSGD(0.5)
+    ts = trainlib.create_train_state(group, {"w": torch.ones(4)},
+                                     DenseSGD(0.1), sopt, "cpu", mesh)
+    tiered = mt.TieredGroup(group, ts.slots, mesh=mesh)
+    mgr = ckptlib.CheckpointManager(ckpt, group, mesh=mesh)
+    mgr.attach_tiered(tiered)
+    mgr.restore(ts)
+    shard = 0 if mesh is None else mesh.rank
+    return {f"spill/{k}": v for k, v in
+            tiered.export_spill()["f"][shard].items()}
+
+
+def multi_tier(mesh, tmp, ckpt_s2: str, ckpt_s1: str):
+    """:func:`tier_run` with the all-gather (``gather/``, saving to
+    ``ckpt_s2``) and without it (``local/``), then
+    :func:`tier_restore` of the one-device checkpoint ``ckpt_s1``
+    (``restore/``)."""
+    out = {"gather/" + k: v for k, v in tier_run(mesh, ckpt_s2).items()}
+    out.update({"local/" + k: v for k, v in
+                tier_run(mesh, gather=False).items()})
+    out.update({"restore/" + k: v for k, v in
+                tier_restore(mesh, ckpt_s1).items()})
+    return out
+
+
 CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity,
-         "variants": variants}
+         "variants": variants, "multi_tier": multi_tier}
