@@ -298,6 +298,40 @@ non-zero:
    of the same state: tables, slot rows, spill stores and tier stats
    bit-equal; the ``pre_step`` all-gathers counted.
 
+26. (t) ``serving_rest``, run right after phase 6 on phase 4's headline
+   checkpoint (129 x 4,194,305 and 65 x 524,289 float32, 614,373 keys;
+   1024/512/256 bf16 towers). (a) ``ServingModel.warmup`` on 2 requests
+   of 512 rows (seconds; the version unchanged), then 4 requests of 512
+   rows through the KServe v2 front (``serving/kserve.py``) over HTTP,
+   K1 and P1 ``find`` launch counts reset just before and read just
+   after; each response's scores bit-equal to the sigmoid of
+   ``ServingModel.predict`` on the same rows; K1 and P1 on a request's
+   own operands against their plain versions, timed (the
+   ``serving_kserve`` records). (b) The port's C ABI
+   (``serving/native/processor.cc``, built with ``g++``): ``initialize``
+   spawns the worker on the card (seconds: start, restore, kernel load);
+   ``process`` and ``batch_process`` of 64 rows and the C SDK
+   (``serving/sdk/c``, built with ``gcc``) against the same worker agree
+   with phase 5's scores within ``PROB_ATOL``; ``process`` latency at 1
+   and 64 rows; the worker's own K1 and P1 ``find`` launches (its
+   responses carry them: ``wdl_entry``'s ``report_launches``), the
+   kernels held on the same request's operands in this process
+   (``serving_abi``). (d) ``ServingModel(mesh=)`` in spawned ranks: one
+   NCCL rank a card (phase 5's batch; its logits against phase 5's, bit
+   for bit expected, within ``SHARDED_LOGIT_ATOL``; K1 and P1 on the
+   owner side against their plain versions: ``serving_mesh``), then two
+   gloo ranks on card 0, each on half the batch, their logits
+   concatenated within ``SHARDED_LOGIT_ATOL``. (e) Both tables quantized
+   per row to int8 (``tools/low_precision.py``), scored through
+   ``gather_quantized``: table bytes, ``accuracy_delta``'s AUC on 4
+   batches of 16,384, the int8 and bf16-kernel logit differences. (c)
+   Last, as it rewrites rows: the whole model published into an
+   ``InMemoryFeatureStore`` and scored by ``RemoteServingModel`` (512
+   rows, within ``REMOTE_LOGIT_ATOL`` of ``ServingModel``); the rows a
+   request reads rewritten at a new version, that delta published into
+   the port's ``MiniRedisServer`` and scored, with and without the
+   cache; publish seconds and rows.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -494,6 +528,26 @@ TIER_SHORT = (6, 2)
 TIER_SHORT_MARKS = (0.4, 0.3)
 TIER_MESH_MARKS = (0.05, 0.03)
 TIER_GATE_KEYS = 1024
+# Phase 26 (t): the rest of serving on phase 4's headline checkpoint:
+# warmup on 2 requests and SERVE_REQUESTS KServe requests of SERVE_ROWS
+# rows; the C ABI's process and batch_process of ABI_ROWS rows and its
+# latency over ABI_REPS calls at 1 and ABI_ROWS rows; remote scoring of
+# SERVE_ROWS rows against ServingModel (a host float32 combine against
+# the device's: both sum one id a bag exactly, so the logits are
+# expected bit-equal; the bound is phase 5's card-vs-CPU bound); the
+# int8 tables' accuracy_delta over LP_EVAL_BATCHES batches of BATCH.
+SERVE_CONFIG = {"reference_shapes": True}  # wdl_entry's: the headline
+SERVE_ROWS, SERVE_REQUESTS = 512, 4
+ABI_ROWS, ABI_REPS = 64, 20
+REMOTE_LOGIT_ATOL = CPU_LOGIT_ATOL
+LP_EVAL_BATCHES = 4
+# Phase 26 (e)'s checks of the int8 tables: every dequantized value lies
+# within half a step (its row's scale) of the f32 one, with room for
+# float32 rounding; and the int8 logits within LP_LOGIT_ATOL of the f32
+# ones on the first eval batch (about five times the 0.00941 read on an
+# NVIDIA H100 80GB HBM3 at 700 W; a wrong scale moves them further).
+LP_HALF_STEP = 0.5 + 1e-3
+LP_LOGIT_ATOL = 0.05
 
 
 def log(msg: str):
@@ -4329,6 +4383,537 @@ def phase_tiered(tmp: str, gather_err: float, apply_err: float,
     return records
 
 
+# -- phase 26 (t): the rest of serving ----------------------------------------
+
+def _serve_parts(device="cuda", extra=None):
+    from deeprec_tpu_torch.serving import wdl_entry
+    return wdl_entry.build({"device": device, **SERVE_CONFIG,
+                            **(extra or {})})
+
+
+def _serve_rows(raw, start: int, n: int) -> dict:
+    return {k: v[start:start + n] for k, v in raw.items()}
+
+
+def _kserve_specs(kserve):
+    from deeprec_tpu_torch.data.criteo import NUM_CAT, NUM_INT
+    return ([kserve.TensorSpec(f"I{i}", "numeric")
+             for i in range(1, NUM_INT + 1)]
+            + [kserve.TensorSpec(f"C{i}", "id", dims=(1,))
+               for i in range(1, NUM_CAT + 1)])
+
+
+def _kserve_request(raw, start: int, n: int) -> dict:
+    rows = _serve_rows(raw, start, n)
+    return {"id": f"rows-{start}", "inputs": [
+        {"name": k, "shape": list(rows[k].shape),
+         "datatype": "FP32" if k.startswith("I") else "INT64",
+         "data": rows[k].reshape(-1).tolist()}
+        for k in sorted(rows) if k[0] in "IC"]}
+
+
+def _serving_records(path, launches, fetch, finds, gather_err):
+    """K1 and P1 ``find`` records of a serving path: launches from its
+    run, times and bound from its largest operands."""
+    return [
+        _record(f"gather_rows[{path}]", "deeprec_tpu_torch/csrc/gather_rows.cu",
+                "deeprec_tpu/ops/pallas/gather.py:72", launches["gather_rows"],
+                gather_err, max(fetch, key=lambda r: r["bound_ms"]), path),
+        _probe_record(path, launches, finds, kind="find")]
+
+
+def _compare_serving_kernels(label, fn):
+    """K1 and P1 on the operands ``fn()`` gives them, each against its
+    plain version and timed: ``(fetch records, find records)``."""
+    with captured_gathers() as calls, captured_probes() as probes:
+        fn()
+    fetch = [compare_gather(f"{label} fetch", *args) for args in calls]
+    return fetch, compare_probes(f"{label} probe", probes)
+
+
+def _serve_kserve(serving, group, raw, gather_err):
+    """26 (a): warmup, then 512-row requests through the KServe front."""
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe
+    from deeprec_tpu_torch.serving import kserve
+    warm = [group.pack_batch_np(_serve_rows(raw, SERVE_ROWS * i, SERVE_ROWS),
+                                "cpu") for i in range(2)]
+    version = serving.version
+    warm_s = serving.warmup(warm)
+    if not warm_s > 0 or serving.version != version:
+        raise AssertionError(f"warmup: {warm_s} s, version {version} -> "
+                             f"{serving.version}")
+    front = kserve.KServeFrontend(serving, "wdl", _kserve_specs(kserve))
+    front.start()
+    url = f"http://127.0.0.1:{front.port}/v2/models/wdl"
+    try:
+        with urllib.request.urlopen(url + "/ready", timeout=60) as r:
+            if r.status != 200:
+                raise AssertionError(f"KServe ready: {r.status}")
+        reqs = [_kserve_request(raw, SERVE_ROWS * i, SERVE_ROWS)
+                for i in range(SERVE_REQUESTS)]
+        gather.launches = 0                   # the main path starts here
+        hash_probe.launches["find"] = 0
+        lat, outs = [], []
+        for req in reqs:
+            body = urllib.request.Request(
+                url + "/infer", data=json.dumps(req).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(body, timeout=300) as r:
+                outs.append(json.loads(r.read()))
+            lat.append(time.perf_counter() - t0)
+        launches = {"gather_rows": gather.launches,
+                    "hash_probe_find": hash_probe.launches["find"]}
+        if min(launches.values()) < 1:        # the main path ends here
+            raise AssertionError(f"the KServe path did not launch every "
+                                 f"kernel: {launches}")
+        for i, out in enumerate(outs):
+            want = kserve.sigmoid_scores(serving.predict(group.pack_batch_np(
+                _serve_rows(raw, SERVE_ROWS * i, SERVE_ROWS), "cpu")))
+            got = out["outputs"][0]["data"]
+            if got != want.tolist():
+                raise AssertionError(
+                    f"KServe request {i} vs in-process predict: max abs "
+                    f"diff {float(np.abs(np.asarray(got) - want).max())}")
+        fetch, finds = _compare_serving_kernels(
+            "26 (a) kserve", lambda: front.infer(reqs[0]))
+    finally:
+        front.stop()
+    log(f"phase 26 (a) kserve: warmup of 2 x {SERVE_ROWS} rows "
+        f"{warm_s:.3f} s (version {version} kept); {SERVE_REQUESTS} "
+        f"/infer requests of {SERVE_ROWS} rows in ms "
+        f"{[round(x * 1e3, 3) for x in lat]} (HTTP+JSON included), scores "
+        f"bit-equal to the sigmoid of ServingModel.predict; launches "
+        f"{launches}")
+    return _serving_records("serving_kserve", launches, fetch, finds,
+                            gather_err)
+
+
+C_CLIENT = r'''
+#include <stdio.h>
+#include <stdlib.h>
+#include "deeprec_client.h"
+int main(int argc, char** argv) {
+  static char req[1 << 22], buf[1 << 20];
+  FILE* f = fopen(argv[3], "rb");
+  if (!f) return 6;
+  size_t n = fread(req, 1, sizeof req - 1, f);
+  fclose(f);
+  req[n] = '\0';
+  dr_client c;
+  if (dr_client_init(&c, argv[1], atoi(argv[2]), 300000)) return 2;
+  if (dr_health(&c, buf, sizeof buf)) return 3;
+  if (dr_predict(&c, req, buf, sizeof buf)) return 5;
+  printf("%s\n", buf);
+  return 0;
+}
+'''
+
+
+def _serve_abi(serving, parts, raw, probs, ckpt_dir, tmp, gather_err):
+    """26 (b): the port's C ABI processor, its worker on the card, and the
+    C SDK against that worker."""
+    from deeprec_tpu_torch.serving import native as proc_native
+    tools = _tool("serving_benchmark_torch")
+
+    def req(start, n):
+        return {"instances": tools.instances(raw, range(start, start + n))}
+
+    def check(what, preds, start, n):
+        got = np.asarray(preds)
+        if got.shape != (n,) or not ((got > 0) & (got < 1)).all():
+            raise AssertionError(f"{what}: predictions {got.shape} out of "
+                                 f"(0, 1)")
+        diff = float(np.abs(got - probs[start:start + n]).max())
+        if diff > PROB_ATOL:
+            raise AssertionError(f"{what} vs in-process: max abs diff "
+                                 f"{diff} > {PROB_ATOL}")
+        return diff
+
+    t0 = time.perf_counter()
+    proc_native.load()
+    build_s = time.perf_counter() - t0
+    env_pp = os.environ.get("PYTHONPATH", "")
+    os.environ["PYTHONPATH"] = os.pathsep.join([ROOT] + ([env_pp] if env_pp
+                                                         else []))
+    t0 = time.perf_counter()
+    try:
+        proc = proc_native.Processor(
+            "deeprec_tpu_torch.serving.wdl_entry",
+            {"checkpoint_dir": ckpt_dir, "device": serving._device.type,
+             **SERVE_CONFIG, "report_launches": True})
+    finally:
+        os.environ["PYTHONPATH"] = env_pp
+    init_s = time.perf_counter() - t0
+    try:
+        info = proc.model_info()
+        if info != {"status": "ok", "version": serving.version}:
+            raise AssertionError(f"ABI model info {info}")
+        out = proc.process(req(0, ABI_ROWS))
+        diffs = [check("process", out["predictions"], 0, ABI_ROWS)]
+        outs = proc.batch_process([req(ABI_ROWS, ABI_ROWS),
+                                   req(2 * ABI_ROWS, ABI_ROWS)])
+        for i, o in enumerate(outs):
+            diffs.append(check("batch_process", o["predictions"],
+                               (i + 1) * ABI_ROWS, ABI_ROWS))
+        lat = {}
+        for n in (1, ABI_ROWS):
+            r_ = req(0, n)
+            proc.process(r_)
+            times = []
+            for _ in range(ABI_REPS):
+                t1 = time.perf_counter()
+                last = proc.process(r_)
+                times.append(time.perf_counter() - t1)
+            lat[n] = (float(np.median(times)) * 1e3,
+                      float(np.percentile(times, 99)) * 1e3)
+        launches = last["launches"]           # the worker's, since its start
+        if min(launches.values()) < 1:
+            raise AssertionError(f"the ABI worker did not launch every "
+                                 f"kernel: {launches}")
+        sdk = os.path.join(ROOT, "deeprec_tpu_torch/serving/sdk/c")
+        src, exe = (os.path.join(tmp, "abi_client.c"),
+                    os.path.join(tmp, "abi_client"))
+        body = os.path.join(tmp, "abi_request.json")
+        with open(src, "w") as f:
+            f.write(C_CLIENT)
+        with open(body, "w") as f:
+            json.dump(req(3 * ABI_ROWS, ABI_ROWS), f)
+        subprocess.run(["gcc", "-O2", "-std=c99", "-I", sdk, "-o", exe, src,
+                        os.path.join(sdk, "deeprec_client.c")], check=True,
+                       capture_output=True, timeout=120)
+        host, port = proc.endpoint()
+        res = subprocess.run([exe, host, str(port), body],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"C SDK client exited {res.returncode}: "
+                                 f"{res.stderr}")
+        diffs.append(check("C SDK", json.loads(res.stdout)["predictions"],
+                           3 * ABI_ROWS, ABI_ROWS))
+    finally:
+        proc.close()
+    log(f"phase 26 (b) C ABI: shim built and loaded in {build_s:.3f} s; "
+        f"initialize (worker start, restore, kernel load) {init_s:.3f} s; "
+        f"process, batch_process and the C SDK of {ABI_ROWS} rows within "
+        f"{max(diffs):.3g} of in-process scoring (PROB_ATOL {PROB_ATOL}); "
+        f"process() p50 / p99 ms: " + ", ".join(
+            f"{n} rows {a:.3f} / {b:.3f}" for n, (a, b) in lat.items())
+        + f"; the worker's launches {launches}")
+    # The worker launched its kernels in its own process: the same
+    # request scored here gives K1 and P1 the same operands.
+    fetch, finds = _compare_serving_kernels(
+        "26 (b) abi", lambda: serving.predict(parts["parse_request"](
+            req(0, ABI_ROWS))))
+    return _serving_records("serving_abi", launches, fetch, finds,
+                            gather_err)
+
+
+def _touch(serving, group, batch, scale: float, step: int) -> int:
+    """Rewrite every row ``batch`` reads, scaled by ``scale`` and stamped
+    ``step`` (what a training update leaves); returns the keys
+    touched."""
+    from deeprec_tpu_torch.embedding import variable as ev
+    from deeprec_tpu_torch.utils import keys as keylib
+    n = 0
+    for tname, tcols in group._columns_by_table().items():
+        cfg, state = group.tables[tname], serving._ts.ev[tname]
+        hi, lo, _ = group._packed_view(batch, tname, tcols)
+        keys = np.unique(keylib.join_ids(hi.reshape(-1).cpu().numpy(),
+                                         lo.reshape(-1).cpu().numpy()))
+        keys = keys[keys != keylib.EMPTY_ID]
+        khi, klo = keylib.split_ids(keys)
+        dev = state.values.device
+        rows = ev.lookup(cfg, state, torch.from_numpy(khi).to(dev),
+                         torch.from_numpy(klo).to(dev)) * scale
+        ev.import_arrays(cfg, state, {
+            "keys": keys, "values": rows.cpu().numpy(),
+            "freqs": np.ones(keys.size, np.int32),
+            "versions": np.full(keys.size, step, np.int32)})
+        n += keys.size
+    return n
+
+
+def _serve_remote(serving, group, parts, raw):
+    """26 (c): the whole model into an InMemoryFeatureStore, a delta into
+    the port's MiniRedisServer, RemoteServingModel against
+    ServingModel. It rewrites rows of the served state: run it last."""
+    from deeprec_tpu_torch.serving import feature_store as fs
+    from deeprec_tpu_torch.serving.resp import MiniRedisServer
+    batch = group.pack_batch_np(_serve_rows(raw, 0, SERVE_ROWS), "cpu")
+    mem = fs.InMemoryFeatureStore()
+    t0 = time.perf_counter()
+    full = fs.publish_sparse(serving._ts, group, mem)
+    full_s = time.perf_counter() - t0
+    params = serving._ts.params
+
+    def against_local(what, remote):
+        got, want = remote.predict(batch), serving.predict(batch)
+        diff = float((got - want).abs().max())
+        if not diff <= REMOTE_LOGIT_ATOL:
+            raise AssertionError(f"remote {what} vs ServingModel: max abs "
+                                 f"logit diff {diff} > {REMOTE_LOGIT_ATOL}")
+        return f"{diff:.3g} (bit-equal {bool(torch.equal(got, want))})"
+
+    t0 = time.perf_counter()
+    r_full = against_local("full", fs.RemoteServingModel(
+        group, parts["apply_fn"], params, mem))
+    remote_s = time.perf_counter() - t0
+    version = serving.version
+    touched = _touch(serving, group, batch, 1.5, version + 1)
+    with MiniRedisServer() as srv:
+        store = fs.RedisFeatureStore(srv.url, prefix="chip_smoke")
+        t0 = time.perf_counter()
+        delta = fs.publish_sparse(serving._ts, group, store,
+                                  min_version=version + 1)
+        delta_s = time.perf_counter() - t0
+        if sum(delta.values()) != touched:
+            raise AssertionError(f"delta published {delta}, {touched} keys "
+                                 f"touched")
+        r_delta = against_local("delta", fs.RemoteServingModel(
+            group, parts["apply_fn"], params, store))
+        cache = fs.InMemoryFeatureStore()
+        cached = fs.RemoteServingModel(group, parts["apply_fn"], params,
+                                       store, cache=cache)
+        r_fill = against_local("cache fill", cached)
+        r_hit = against_local("cache hit", cached)
+        n_cached = sum(cache.num_rows(t) for t in group.tables)
+    full, delta = ({f"{group.tables[t].dim} wide": n for t, n in d.items()}
+                   for d in (full, delta))
+    log(f"phase 26 (c) remote: published {full} rows in {full_s:.3f} s "
+        f"into an InMemoryFeatureStore; a {SERVE_ROWS}-row remote request "
+        f"{remote_s:.3f} s, max abs logit diff from ServingModel {r_full}; "
+        f"{touched} keys rewritten at version {version + 1}, the delta "
+        f"{delta} published into MiniRedisServer in {delta_s:.3f} s; "
+        f"remote from Redis {r_delta}; through the cache, filling "
+        f"{r_fill}, hitting {r_hit} ({n_cached} rows cached); bound "
+        f"{REMOTE_LOGIT_ATOL}")
+
+
+def _serving_mesh_rank(rank, world, backend, tmp, ckpt_dir, card, draws,
+                       device="cuda"):
+    """A spawned rank of 26 (d): ``ServingModel(mesh=)`` of the headline
+    checkpoint on this rank's rows of phase 5's batch; results in
+    ``tmp/serve-<backend>-r<rank>.npz``."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    from deeprec_tpu_torch.serving.processor import ServingModel
+    CARD.update(card)
+    DRAW_INSTRUCTIONS.update(draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(
+        backend=backend, rank=rank, world_size=world, device=device,
+        init_method="file://" + os.path.join(tmp, f"store-serve-{backend}"))
+    try:
+        mesh = meshlib.data_mesh(world, device=device)
+        parts = _serve_parts(device, {"num_shards": world})
+        group = parts["group"]
+        with np.load(os.path.join(tmp, "serve_raw.npz")) as z:
+            raw = dict(z)
+        n = BATCH // world
+        batch = group.pack_batch_np(_serve_rows(raw, rank * n, n), "cpu")
+        t0 = time.perf_counter()
+        serving = ServingModel(group, parts["apply_fn"], parts["ts_template"],
+                               ckpt_dir, mesh=mesh)
+        version = serving.full_update()
+        restore_s = time.perf_counter() - t0
+        gather.launches = 0                   # the main path starts here
+        hash_probe.launches["find"] = 0
+        logits = serving.predict(batch)
+        _sync(torch.device(device))
+        launches = {"gather_rows": gather.launches,
+                    "hash_probe_find": hash_probe.launches["find"]}
+        out = {"logits": logits.cpu().numpy(), "version": version,
+               "restore_s": restore_s, "launches": json.dumps(launches)}
+        if backend == "nccl":
+            fetch, finds = _compare_serving_kernels(
+                f"26 (d) rank {rank}", lambda: serving.predict(batch))
+            out["records"] = json.dumps(_serving_records(
+                "serving_mesh", launches, fetch, finds, 0.0))
+        np.savez(os.path.join(tmp, f"serve-{backend}-r{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_mesh(raw, logits, ckpt_dir, tmp, device="cuda"):
+    """26 (d): one NCCL rank a card, then two gloo ranks on card 0 (on
+    the CPU: the gloo ranks only)."""
+    import torch.multiprocessing as mp
+    np.savez(os.path.join(tmp, "serve_raw.npz"), **raw)
+    want = logits.cpu().numpy()
+    records = []
+    runs = [("gloo", 2)]
+    if device == "cuda":
+        runs.insert(0, ("nccl", torch.cuda.device_count()))
+    for backend, world in runs:
+        t0 = time.perf_counter()
+        mp.spawn(_serving_mesh_rank, nprocs=world, join=True, args=(
+            world, backend, tmp, ckpt_dir, dict(CARD),
+            dict(DRAW_INSTRUCTIONS), device))
+        ranks = []
+        for r in range(world):
+            with np.load(os.path.join(tmp, f"serve-{backend}-r{r}.npz")) as z:
+                ranks.append(dict(z))
+        got = np.concatenate([res["logits"] for res in ranks])
+        diff = float(np.abs(got - want).max())
+        launches = [json.loads(str(res["launches"])) for res in ranks]
+        if diff > SHARDED_LOGIT_ATOL or min(min(x.values())
+                                            for x in launches) < 1:
+            raise AssertionError(f"26 (d) {backend}: logits within {diff} of "
+                                 f"phase 5's (bound {SHARDED_LOGIT_ATOL}); "
+                                 f"launches {launches}")
+        if backend == "nccl":
+            records = json.loads(str(ranks[0]["records"]))
+            for rec in records:
+                key = ("gather_rows" if rec["name"].startswith("gather")
+                       else "hash_probe_find")
+                rec["launches"] = sum(x[key] for x in launches)
+        log(f"phase 26 (d) {world} {backend} rank(s): versions "
+            f"{[int(res['version']) for res in ranks]}, restore s "
+            f"{[round(float(res['restore_s']), 3) for res in ranks]}; "
+            f"logits against phase 5's: bit-equal "
+            f"{bool(np.array_equal(got, want))}, max abs diff {diff:.3g} "
+            f"(bound {SHARDED_LOGIT_ATOL}); launches {launches}; "
+            f"{time.perf_counter() - t0:.3f} s")
+    return records
+
+
+@contextlib.contextmanager
+def quantized_reads(qvalues):
+    """Within the block, a ``gather_rows`` call on a table whose f32
+    values are a key of ``qvalues`` (``{id(values): QuantizedEVValues}``)
+    reads that table's int8 rows through ``gather_quantized`` instead,
+    with the same default-row select; the rest of the eval path (P1's
+    find, the bag combine, the towers) runs as it is."""
+    from deeprec_tpu_torch.ops.kernels import gather
+    from deeprec_tpu_torch.tools.low_precision import gather_quantized
+    kernel_fn = gather.gather_rows
+
+    def quantized(values, slots, admitted=None, bank=None, sel=None):
+        qv = qvalues.get(id(values))
+        if qv is None:
+            return kernel_fn(values, slots, admitted, bank, sel)
+        idx = torch.clamp(slots.long(), 0, values.shape[0] - 1)
+        rows = gather_quantized(qv, idx)
+        return gather.gather_rows_reference(
+            rows, torch.arange(rows.shape[0], device=rows.device), admitted,
+            bank, sel)
+
+    gather.gather_rows = quantized
+    try:
+        yield
+    finally:
+        gather.gather_rows = kernel_fn
+
+
+def _check_quantized(values, qv, chunk=1 << 20):
+    """Every dequantized value within half a step (its row's scale) of
+    the f32 one, plus float32 rounding; returns the worst ratio."""
+    from deeprec_tpu_torch.tools.low_precision import gather_quantized
+    worst = 0.0
+    for a in range(0, values.shape[0], chunk):
+        idx = torch.arange(a, min(a + chunk, values.shape[0]),
+                           device=values.device)
+        err = (gather_quantized(qv, idx) - values[idx]).abs()
+        ratio = (err / qv.scale[idx]).max()
+        worst = max(worst, float(ratio))
+    if not worst <= LP_HALF_STEP:
+        raise AssertionError(f"26 (e): a dequantized value is {worst:.4g} "
+                             f"steps from its f32 value (> {LP_HALF_STEP})")
+    return worst
+
+
+def _serve_low_precision(serving, group, parts):
+    """26 (e): both tables quantized per row to int8, scored through
+    ``gather_quantized``; table bytes, ``accuracy_delta``'s AUC delta on
+    eval batches, and the logit difference of the towers' kernels stored
+    in bf16."""
+    from deeprec_tpu_torch.data.criteo import (CRITEO_HASH_BUCKETS,
+                                               SyntheticCriteo)
+    from deeprec_tpu_torch.feature_column.feature_column import batch_to
+    from deeprec_tpu_torch.tools import low_precision as lp
+    from deeprec_tpu_torch.train import loop as trainlib
+    from deeprec_tpu_torch.train.metrics import batch_auc
+    apply_fn = parts["apply_fn"]
+    qvalues, sizes, steps = {}, [], []
+    for tname, st in serving._ts.ev.items():
+        qv = lp.quantize_ev_state(st).values
+        qvalues[id(st.values)] = qv
+        steps.append(_check_quantized(st.values, qv))
+        f32 = st.values.numel() * st.values.element_size()
+        sizes.append(f"{st.values.shape[1]} wide: int8 "
+                     f"{qv.nbytes()} B against f32 {f32} B")
+
+    def quantized_predict(b):
+        with quantized_reads(qvalues):
+            return serving.predict(b)
+    data = SyntheticCriteo(batch_size=BATCH, vocab=CRITEO_HASH_BUCKETS,
+                           seed=0)
+    batches = [group.pack_batch_np(data.next_batch_np(wide=False), "cpu")
+               for _ in range(LP_EVAL_BATCHES)]
+
+    def metric(y, p):
+        return float(batch_auc(torch.from_numpy(p), torch.from_numpy(y)))
+
+    t0 = time.perf_counter()
+    acc = lp.accuracy_delta(
+        serving.predict,
+        quantized_predict,
+        batches, metric)
+    lp_s = time.perf_counter() - t0
+    b0 = batch_to(batches[0], serving._device)
+    embs = trainlib.eval_embeddings(group, serving._ts, b0)
+    params = serving._ts.params
+    # The towers' kernels in bf16 storage; the head reads float32 (its
+    # input is cast to float32) and keeps its own.
+    towers = lp.to_bf16({k: v for k, v in params.items()
+                         if k.startswith("deep.")})
+    with torch.no_grad():
+        full = apply_fn(params, embs, b0)
+        half = apply_fn({**params, **towers}, embs, b0)
+    q_diff = float((quantized_predict(b0) - full).abs().max())
+    bf_diff = float((half.float() - full).abs().max())
+    if not (np.isfinite(acc["delta"]) and q_diff <= LP_LOGIT_ATOL
+            and np.isfinite(bf_diff)):
+        raise AssertionError(f"26 (e): {acc}, int8 logit diff {q_diff} "
+                             f"(bound {LP_LOGIT_ATOL}), bf16 {bf_diff}")
+    log(f"phase 26 (e) low precision: {'; '.join(sizes)}; dequantized "
+        f"values within {max(steps):.4g} of a step of the f32 ones "
+        f"(bound {LP_HALF_STEP}); accuracy_delta "
+        f"(AUC) over {LP_EVAL_BATCHES} x {BATCH} rows {acc} ({lp_s:.3f} s); "
+        f"int8 tables' max abs logit diff {q_diff:.3g}; bf16 tower "
+        f"kernels' {bf_diff:.3g}")
+
+
+def phase_serving_rest(ckpt_dir: str, raw, logits, gather_err: float,
+                       device="cuda") -> list:
+    """Phase 26 (t): the rest of serving on the headline checkpoint of
+    phase 4; see the module's docstring. Returns the K1 and P1 ``find``
+    records of the ``serving_kserve``, ``serving_abi`` and
+    ``serving_mesh`` paths."""
+    from deeprec_tpu_torch.serving.processor import ServingModel
+    t_phase = time.perf_counter()
+    parts = _serve_parts(device)
+    group = parts["group"]
+    serving = ServingModel(group, parts["apply_fn"], parts["ts_template"],
+                           ckpt_dir)
+    serving.full_update()
+    probs = torch.sigmoid(logits.double()).cpu().numpy()
+    records = _serve_kserve(serving, group, raw, gather_err)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        records += _serve_abi(serving, parts, raw, probs, ckpt_dir, tmp,
+                              gather_err)
+        records += _serve_mesh(raw, logits, ckpt_dir, tmp, device)
+    _serve_low_precision(serving, group, parts)
+    _serve_remote(serving, group, parts, raw)
+    log(f"phase 26 (t): the rest of serving in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return records
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4353,6 +4938,9 @@ def main():
         del parts
         torch.cuda.empty_cache()
         phase_worker(raw, logits, ckpt_dir)
+        serve_records = phase_serving_rest(ckpt_dir, raw, logits,
+                                           gather_err)
+    _release()
     tr, _, k2, k1, launches, p1, i1 = phase_train("adagrad", "8 (b)", 30,
                                                   30)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
@@ -4406,6 +4994,7 @@ def main():
         + _path_records("headline", adam_launches, k1, k3, gather_err,
                         apply_err, kind="adam")[1:]
         + [_probe_record("serving", serve_launches, finds, kind="find")]
+        + serve_records
         + _path_records("static_bucket", s_launches, s1, s2, gather_err,
                         apply_err)
         + _path_records("dim16", d_launches, d1, d2, gather_err, apply_err,

@@ -46,6 +46,7 @@ FILE_SECONDS = {
     "tests/test_torch_sharded.py": 38.5,
     "tests/test_torch_checkpoint.py": 38.0,
     "tests/test_fused_combine.py": 36.9,
+    "tests/test_torch_serving_mesh.py": 36.7,
     "tests/test_serving.py": 35.2,
     "tests/test_torch_hash_table.py": 34.4,
     "tests/test_torch_serving.py": 34.1,
@@ -55,12 +56,13 @@ FILE_SECONDS = {
     "tests/test_torch_variants_mesh.py": 30.2,
     "tests/test_static_bucket.py": 29.8,
     "tests/test_torch_static_bucket.py": 29.3,
-    "tests/test_torch_mesh_train.py": 28.4,
     "tests/test_torch_estimator.py": 28.5,
+    "tests/test_torch_mesh_train.py": 28.4,
     "tests/test_torch_zoo.py": 26.0,
     "tests/test_torch_epoch.py": 25.9,
     "tests/test_serving_sdk.py": 25.5,
     "tests/test_coalesce.py": 24.8,
+    "tests/test_torch_serving_fronts.py": 24.0,
     "tests/test_twoprocess.py": 23.6,
     "tests/test_torch_variable.py": 23.1,
     "tests/test_adaptive_sharded.py": 23.1,
@@ -70,6 +72,8 @@ FILE_SECONDS = {
     "tests/test_torch_optimizers.py": 19.9,
     "tests/test_kserve.py": 19.2,
     "tests/test_torch_wdl.py": 18.7,
+    "tests/test_torch_bench_tools.py": 18.5,
+    "tests/test_torch_processor_abi.py": 18.3,
     "tests/test_pallas_apply.py": 16.2,
     "tests/test_torch_multi_tier_mesh.py": 13.9,
     "tests/test_weighted_column.py": 13.7,
@@ -79,7 +83,9 @@ FILE_SECONDS = {
     "tests/test_torch_fused_combine.py": 12.0,
     "tests/test_torch_sparse_apply.py": 8.8,
     "tests/test_torch_fused_ops.py": 8.0,
+    "tests/test_torch_feature_store.py": 7.8,
     "tests/test_multihost.py": 4.8,
+    "tests/test_torch_low_precision.py": 4.6,
     "tests/test_torch_keys.py": 3.7,
     "tests/test_torch_init_rows.py": 2.2,
     "tests/test_kafka_group.py": 2.1,

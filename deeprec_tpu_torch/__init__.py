@@ -28,5 +28,10 @@ them. Tables shard over a ``torch.distributed`` mesh
 (``embedding/sharded.py``). The table and column variants: weighted
 columns, dynamic-dimension tables (``embedding/dyn_dim.py``), adaptive
 embedding (``embedding/adaptive.py``), multi-hash embeddings and
-growable tables (``embedding/multi_hash.py``, ``embedding/tensible.py``).
+growable tables (``embedding/multi_hash.py``, ``embedding/tensible.py``);
+host and disk tiers (``embedding/multi_tier.py``). Serving also runs from sharded tables (``ServingModel(mesh=)``),
+behind the KServe v2 front (``serving/kserve.py``), in remote mode over
+a feature store (``serving/feature_store.py``, ``serving/resp.py``),
+through the embeddable C ABI and its SDKs (``serving/native/``,
+``serving/sdk/``), and from int8 tables (``tools/low_precision.py``).
 """

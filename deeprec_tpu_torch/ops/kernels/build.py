@@ -3,7 +3,8 @@
 Each kernel in ``deeprec_tpu_torch/csrc/`` exposes a plain C entry, so
 it builds with ``nvcc`` alone (no PyTorch headers: seconds, not
 minutes) and binds with ``ctypes``; the host parser in
-``deeprec_tpu_torch/native/`` builds the same way with ``g++``. A
+``deeprec_tpu_torch/native/`` and the serving C ABI in
+``deeprec_tpu_torch/serving/native/`` build the same way with ``g++``. A
 library goes to ``build/kernels/`` or ``build/native/`` at the
 repository root, named by a hash of the source and flags; a file lock
 serializes processes that build the same library at once, and
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -109,7 +111,8 @@ def load_library(name: str) -> ctypes.CDLL:
                  NVCC_FLAGS + KERNEL_FLAGS.get(name, ()), BUILD_DIR)
 
 
-def load_host_library(name: str) -> ctypes.CDLL:
-    """Build (once) with ``g++`` and load ``native/<name>.cc``."""
-    return _load(name, os.path.join(NATIVE_DIR, f"{name}.cc"), _gxx,
+def load_host_library(name: str, src: Optional[str] = None) -> ctypes.CDLL:
+    """Build (once) with ``g++`` and load ``src``, by default
+    ``native/<name>.cc``."""
+    return _load(name, src or os.path.join(NATIVE_DIR, f"{name}.cc"), _gxx,
                  HOST_FLAGS, HOST_BUILD_DIR)

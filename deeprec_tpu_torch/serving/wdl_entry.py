@@ -9,8 +9,12 @@ over float32 params. Config keys (defaults in parentheses):
 ``reference_shapes`` (False), ``dim`` (16; per-column dim when not
 reference-shaped), ``capacity`` (``1 << 20``; per-column ceiling),
 ``hidden`` ([1024, 512, 256]), ``dtype`` ("bfloat16" or "float32"),
-``device`` ("cuda"). The template's towers are seeded with 0 and
-replaced by the checkpoint's on restore.
+``device`` ("cuda"), ``num_shards`` (None; a number: the group of a
+mesh of that many ranks, every table row-sharded, for
+``ServingModel(mesh=)``), ``report_launches`` (False; True adds the
+process's K1 and P1 ``find`` launch counts to every response, as
+``"launches"``). The template's towers are seeded with 0 and replaced
+by the checkpoint's on restore.
 
 Requests: ``{"instances": [{"I1": x, ..., "I13": x, "C1": id, ...,
 "C26": id}, ...]}`` with float numerics and int64 ids.
@@ -39,7 +43,10 @@ def build(config: dict) -> dict:
         capacity=int(config.get("capacity", 1 << 20)),
         reference_shapes=bool(config.get("reference_shapes", False)),
         wide_in_deep=True, ev_option=evo)
-    group = EmbeddingGroup(cols, coalesce=True)
+    shards = config.get("num_shards")
+    group = EmbeddingGroup(cols, coalesce=True, **(
+        {} if shards is None else dict(axis_name="data",
+                                       num_shards=int(shards))))
     model = wdl.WDL(wdl.input_width(group),
                     hidden=tuple(config.get("hidden", (1024, 512, 256))),
                     dtype=_DTYPES[config.get("dtype", "bfloat16")],
@@ -60,5 +67,16 @@ def build(config: dict) -> dict:
                                         np.int64)
         return group.pack_batch_np(batch, device)
 
-    return {"group": group, "apply_fn": wdl.apply_fn(model, group),
-            "ts_template": ts, "parse_request": parse_request}
+    parts = {"group": group, "apply_fn": wdl.apply_fn(model, group),
+             "ts_template": ts, "parse_request": parse_request}
+    if config.get("report_launches"):
+        parts["format_response"] = _with_launches
+    return parts
+
+
+def _with_launches(out: torch.Tensor) -> dict:
+    from deeprec_tpu_torch.ops.kernels import gather, hash_probe
+    from deeprec_tpu_torch.serving.processor import sigmoid_scores
+    return {"predictions": sigmoid_scores(out).tolist(),
+            "launches": {"gather_rows": gather.launches,
+                         "hash_probe_find": hash_probe.launches["find"]}}

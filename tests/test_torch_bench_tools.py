@@ -9,7 +9,8 @@
 * ``tools/model_benchmark_torch.py``: a tiny WDL's ``flops_per_step`` is
   its towers' GEMM count, ``2 B sum(in * out)`` three times (forward,
   and the backward's input and weight gradients).
-* ``tools/serving_benchmark_torch.py``'s device rows and
+* ``tools/serving_benchmark_torch.py``'s device rows, its ``c_abi``
+  rows (``--abi-only``: the port's C ABI processor and worker) and
   ``tools/step_breakdown_torch.py``'s phases.
 * ``tools/kernel_benchmark_torch.py``'s operands, and the bytes and
   bounds ``chip_smoke.py`` counts for them.
@@ -198,8 +199,31 @@ def test_serving_benchmark_device_rows():
     for r in rows:
         assert r["path"] == "device" and r["device_kind"] == "cpu"
         assert 0 < r["p50"] <= r["p99"] and r["samples_per_sec"] > 0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        sb.main(["--abi-only"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA card"):
+            sb.main(["--abi-only"])
+
+
+def test_serving_benchmark_abi_rows(tmp_path, monkeypatch):
+    """``--abi-only --cpu`` at a tiny size: c_abi rows at 1 and 64
+    instances through the port's C ABI worker, merged into the file's
+    other rows (an earlier c_abi row is replaced)."""
+    monkeypatch.setattr(sb, "ABI_MODEL", dict(dim=4, capacity=256,
+                                              hidden=[16, 8],
+                                              dtype="float32"))
+    monkeypatch.setattr(sb, "ABI_TRAIN", dict(steps=2, batch=64,
+                                              vocab=300))
+    monkeypatch.setattr(sb, "REQUESTS", 3)
+    out = tmp_path / "serving.json"
+    out.write_text(json.dumps({"note": "x", "rows": [
+        {"path": "device", "batch": 1}, {"path": "c_abi", "batch": 7}]}))
+    sb.main(["--abi-only", "--cpu", "--out", str(out)])
+    rows = json.loads(out.read_text())["rows"]
+    assert [(r["path"], r["batch"]) for r in rows] == [
+        ("device", 1), ("c_abi", 1), ("c_abi", 64)]
+    for r in rows[1:]:
+        assert r["device_kind"] == "cpu" and r["requests"] == 3
+        assert 0 < r["p50"] <= r["p99"] and r["initialize_s"] > 0
 
 
 def test_step_breakdown_phases():

@@ -276,8 +276,15 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.models.registry, "
         "deeprec_tpu_torch.data.behavior, deeprec_tpu_torch.train.losses, "
         "deeprec_tpu_torch.config, deeprec_tpu_torch.utils.keys, "
-        "deeprec_tpu_torch.utils.stateless_random\n"
+        "deeprec_tpu_torch.utils.stateless_random, "
+        "deeprec_tpu_torch.serving.kserve, "
+        "deeprec_tpu_torch.serving.feature_store, "
+        "deeprec_tpu_torch.serving.resp, deeprec_tpu_torch.serving.native, "
+        "deeprec_tpu_torch.serving.sdk, deeprec_tpu_torch.serving.sdk.client, "
+        "deeprec_tpu_torch.tools, deeprec_tpu_torch.tools.low_precision\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
+        "deeprec_tpu_torch.serving.native.load()\n"
+        "deeprec_tpu_torch.serving.kserve.hash_tokens(['a'])\n"
         "sys.path.insert(0, 'tools')\n"
         "import train_zoo_torch, train_wdl_torch, profile_train_torch\n"
         "import zoo_auc_torch, zoo_delta_torch, model_benchmark_torch, "

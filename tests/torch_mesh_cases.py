@@ -90,9 +90,9 @@ def global_batches(n: int, seed: int = 0):
     return [data.next_batch_np(wide=True) for _ in range(n)]
 
 
-def local_slice(raw: dict, rank: int, world: int) -> dict:
-    """Rank ``rank``'s rows of a raw global batch."""
-    b = B_GLOBAL // world
+def local_slice(raw: dict, rank: int, world: int, rows=B_GLOBAL) -> dict:
+    """Rank ``rank``'s rows of a raw global batch of ``rows`` rows."""
+    b = rows // world
     return {k: np.asarray(v)[rank * b:(rank + 1) * b] for k, v in raw.items()}
 
 
@@ -540,5 +540,104 @@ def multi_tier(mesh, tmp, ckpt_s2: str, ckpt_s1: str):
     return out
 
 
+# -- serving from sharded tables (S = 2) ---------------------------------------
+
+SERVE_B = 16      # global rows of the scored batch
+SERVE_DIM = 4
+SERVE_STEPS = (3, 5)  # the full checkpoint's step, the delta's
+
+
+def serve_columns(fc):
+    """The serving test model's columns in either package (``fc``): a
+    numeric ``x``, an EV bag ``a`` (sum of 2 ids), a static hash-bucket
+    column ``s`` (64 buckets) and an EV column ``r``."""
+    return [fc.NumericColumn("x"),
+            fc.EmbeddingColumn("a", dim=SERVE_DIM, capacity=128,
+                               combiner="sum"),
+            fc.EmbeddingColumn("s", dim=SERVE_DIM, capacity=64,
+                               static_bucket=True, num_buckets=64),
+            fc.EmbeddingColumn("r", dim=SERVE_DIM, capacity=64)]
+
+
+def serve_group(fc, num_shards=None):
+    """The group of :func:`serve_columns`; with ``num_shards``, a mesh
+    group whose ``a`` and ``s`` are row-sharded and ``r`` replicated."""
+    if num_shards is None:
+        return fc.EmbeddingGroup(serve_columns(fc))
+    return fc.EmbeddingGroup(serve_columns(fc), axis_name="data",
+                             num_shards=num_shards,
+                             placement={"r": "replicated"})
+
+
+def serve_raw(i: int, rows: int = SERVE_B) -> dict:
+    """Raw batch ``i`` of the serving model (a label, ids and ``x``)."""
+    r = np.random.default_rng(300 + i)
+    return {"x": r.normal(size=rows).astype(np.float32),
+            "a": r.integers(0, 60, size=(rows, 2)).astype(np.int64),
+            "s": r.integers(0, 1000, size=(rows, 1)).astype(np.int64),
+            "r": r.integers(0, 40, size=(rows, 1)).astype(np.int64),
+            "label": (r.random(rows) < 0.5).astype(np.float32)}
+
+
+def serve_apply(p, embs, b):
+    """The port's apply: ``sum(concat(a, s, r) * w) + x * v``."""
+    h = torch.cat([embs["a"], embs["s"], embs["r"]], dim=1)
+    return (h * p["w"]).sum(dim=1) + b["x"] * p["v"]
+
+
+def serve_params():
+    return {"w": torch.ones(3 * SERVE_DIM), "v": torch.full((1,), 0.5)}
+
+
+def serving(mesh, tmp, ckpt: str, ckpt_s2: str, redis_url: str):
+    """``ServingModel(mesh=)`` of :func:`serve_group` on this rank's rows
+    of ``serve_raw(99)``: restored at the full checkpoint's step of
+    ``ckpt`` (``s1/``), after ``delta_update`` (``delta/``), then saved
+    at S = 2 into ``ckpt_s2`` and restored from there (``s2/``);
+    :meth:`ServingModel.settle` of rank-dependent steps (``settled``);
+    whether ``ModelWatcher`` refused the mesh model (``watcher_refused``);
+    and the state's rows published into the Redis server at
+    ``redis_url`` (``publish/<table>``: the keys this rank wrote)."""
+    from deeprec_tpu_torch.feature_column import feature_column as fc
+    from deeprec_tpu_torch.serving.feature_store import (RedisFeatureStore,
+                                                         export_sparse,
+                                                         publish_sparse)
+    from deeprec_tpu_torch.serving.processor import (ModelWatcher,
+                                                     ServingModel)
+    from deeprec_tpu_torch.train import checkpoint as ckptlib
+    from deeprec_tpu_torch.train import loop as trainlib
+    group = serve_group(fc, mesh.size)
+    tmpl = trainlib.create_train_state(group, serve_params(),
+                                       device="cpu", mesh=mesh)
+    batch = group.pack_batch_np(local_slice(serve_raw(99), mesh.rank,
+                                            mesh.size, SERVE_B), "cpu")
+    out = {}
+    model = ServingModel(group, serve_apply, tmpl, ckpt, mesh=mesh)
+    out["version/s1"] = np.array(model.full_update(step=SERVE_STEPS[0]))
+    out["s1/logits"] = model.predict(batch).numpy()
+    out["version/delta"] = np.array(model.delta_update())
+    out["delta/logits"] = model.predict(batch).numpy()
+    out["version/none"] = np.array(-1 if model.delta_update() is None
+                                   else 0)
+    out["settled"] = np.array(model.settle(SERVE_STEPS[1] - 2 * mesh.rank))
+    try:
+        ModelWatcher(model)
+        out["watcher_refused"] = np.array(0)
+    except ValueError:
+        out["watcher_refused"] = np.array(1)
+    ckptlib.CheckpointManager(ckpt_s2, group, mesh=mesh).save(model._ts)
+    model2 = ServingModel(group, serve_apply, tmpl, ckpt_s2, mesh=mesh)
+    out["version/s2"] = np.array(model2.full_update())
+    out["s2/logits"] = model2.predict(batch).numpy()
+    store = RedisFeatureStore(redis_url, prefix="mesh")
+    counts = publish_sparse(model._ts, group, store, mesh=mesh)
+    for t, (keys, rows) in export_sparse(model._ts, group,
+                                         mesh=mesh).items():
+        assert counts[t] == keys.size
+        out[f"publish/{t}"] = keys
+    return out
+
+
 CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity,
-         "variants": variants, "multi_tier": multi_tier}
+         "variants": variants, "multi_tier": multi_tier,
+         "serving": serving}
