@@ -332,6 +332,43 @@ non-zero:
    the port's ``MiniRedisServer`` and scored, with and without the
    cache; publish seconds and rows.
 
+27. (u) ``input_and_mesh_epoch``, last. (a) Online learning from Kafka
+   at full width: the headline (``bench.build_wdl``) trained on
+   ``KAFKA_BATCHES`` batches of 16,384 TSV lines of its own stream
+   (``SyntheticCriteo(vocab=CRITEO_HASH_BUCKETS, seed=0)``, written to a
+   temporary directory by ``bench.write_tsv``), produced into the port's ``MiniKafkaBroker`` on loopback
+   (one partition) and consumed by ``data/kafka.KafkaDataset``, whose
+   ``parse`` runs the native parser and ``batch_np_dict`` and packs the
+   batch onto the card: losses and every state tensor bit-equal to the
+   same lines through ``criteo_file_batches``, ``n_overflow`` 0; K1,
+   K2, P1 (insert) and P2 launch counts reset just before the Kafka run
+   and read just after, each above 0; the host ms of each batch's poll,
+   parse and pack beside the step's ms between CUDA events. Then a run
+   stopped after ``KAFKA_STOP`` batches, its ``state()`` restored into
+   a new ``KafkaDataset`` and run on: bit-equal to the run without the
+   stop. Then ``KAFKA_E2E_BATCHES`` batches of the e2e row's stream
+   (``SyntheticCriteo(vocab=200_000, seed=7)``) through another topic,
+   bit-equal to the same lines from a file, each step's ``n_overflow``
+   equal on both sides (that vocabulary overflows the unique budgets).
+   The kernels against their plain versions on the first Kafka
+   batch's operands, from the state the runs started at (the
+   ``online_kafka`` records). (b) One NCCL rank (S = 1, spawned) of
+   phase 23 (a)'s sharded headline by ``make_epoch_step(mesh=)`` on a
+   pool of ``MESH_EPOCH_POOL`` batches for ``MESH_EPOCH_EPOCHS``
+   epochs: step 0 eager, then the step with its all-to-alls and
+   all-reduces captured in one CUDA graph and replayed under
+   ``set_sync_debug_mode("error")``; losses and every state tensor
+   bit-equal to ``make_train_step(mesh=)`` stepped over the same pool
+   from the same state; ``captured`` True and E * K - 1 replays; the
+   collectives the capture holds (from ``Mesh.trace``: the same as step
+   0's); the device ms a replay beside the stepped loop's synchronized
+   step; launch counts around the captured call as in (a); the kernels
+   on the epoch's first step's operands (``sharded_epoch``). (c) In the
+   same rank, ``tools/scaling_model_torch.anchor_run``: the sharded and
+   the unsharded headline steps on the same global batches (ms between
+   CUDA events), the traced all-to-all and all-reduce bytes of a step
+   against the byte model's; a difference fails the phase.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -548,6 +585,26 @@ LP_EVAL_BATCHES = 4
 # NVIDIA H100 80GB HBM3 at 700 W; a wrong scale moves them further).
 LP_HALF_STEP = 0.5 + 1e-3
 LP_LOGIT_ATOL = 0.05
+# Phase 27 (u): (a) the headline trained on KAFKA_BATCHES batches of TSV
+# lines of its own stream (SyntheticCriteo(vocab=CRITEO_HASH_BUCKETS,
+# seed=0): each column's ids within its bucket count, so the tables'
+# unique budgets drop no id; the e2e row's 200,000-id vocabulary
+# overflows them, ~10,000 ids a step on an NVIDIA H100 80GB HBM3 at
+# 700 W) through the port's MiniKafkaBroker, one partition of
+# KAFKA_TOPIC, polled KAFKA_POLL_S at most a fetch; then a run stopped
+# after KAFKA_STOP batches and resumed from state(), half way. (b) One
+# NCCL rank of the sharded headline by make_epoch_step(mesh=) on a pool
+# of MESH_EPOCH_POOL batches for MESH_EPOCH_EPOCHS epochs: 7 replays,
+# each wrapping the pool once, in a few seconds.
+KAFKA_BATCHES, KAFKA_STOP = 8, 4
+KAFKA_TOPIC = "criteo"
+# Then KAFKA_E2E_BATCHES batches of the e2e row's stream on KAFKA_E2E_TOPIC
+# against the same lines from a file, its overflow held equal on both
+# sides: three steps show the dropped ids agree, in a few seconds.
+KAFKA_E2E_BATCHES = 3
+KAFKA_E2E_TOPIC = "criteo_e2e"
+KAFKA_POLL_S = 0.05
+MESH_EPOCH_POOL, MESH_EPOCH_EPOCHS = 4, 2
 
 
 def log(msg: str):
@@ -2368,6 +2425,19 @@ def _state_tensors(x, path=""):
             yield from _state_tensors(getattr(x, k), f"{path}.{k}")
 
 
+def _states_equal(a, b, label: str, what: str) -> int:
+    """Every tensor of two train states bit-equal, else the first that
+    differs is named; returns the count of tensors compared."""
+    n = 0
+    for (p, x), (_, y) in zip(_state_tensors(a), _state_tensors(b)):
+        n += 1
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"phase {label}: {what} differ first at {p}: max abs "
+                f"difference {float((x.double() - y.double()).abs().max())}")
+    return n
+
+
 def _epoch_launch_counts(kind):
     from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
@@ -2431,15 +2501,8 @@ def eager_vs_graph(tr, pool, n_epochs: int, kind: str, label: str):
     if tr.ts.step != eager.step:
         raise AssertionError(f"phase {label}: steps {tr.ts.step} vs "
                              f"{eager.step}")
-    paths = 0
-    for (p, g), (_, e) in zip(_state_tensors(tr.ts),
-                              _state_tensors(eager)):
-        paths += 1
-        if not torch.equal(g, e):
-            raise AssertionError(
-                f"phase {label}: the captured epoch and the eager loop "
-                f"differ first at {p}: max abs difference "
-                f"{float((g.double() - e.double()).abs().max())}")
+    paths = _states_equal(tr.ts, eager, label,
+                          "the captured epoch and the eager loop")
     n = run["steps"]
     stats = {"replays": run["replays"],
              "replay_ms": replay_ms / run["replays"],
@@ -4914,6 +4977,390 @@ def phase_serving_rest(ckpt_dir: str, raw, logits, gather_err: float,
     return records
 
 
+# -- phase 27 (u): online input and the captured epoch on a mesh -------------
+
+def _kafka_parse(group, dev, times: dict):
+    """The online run's ``parse``: the port's native parser on the
+    polled lines and ``batch_np_dict`` (no ``C*_wide`` columns, as the
+    headline), then the pack onto the step's device; each part's host
+    ms appended to ``times["parse"]`` and ``times["pack"]``."""
+    from deeprec_tpu_torch import native
+    from deeprec_tpu_torch.data import criteo
+
+    def parse(msgs):
+        t0 = time.perf_counter()
+        rows, labels, dense, cats, _ = native.parse_criteo(
+            b"\n".join(msgs) + b"\n", len(msgs))
+        if rows != len(msgs):
+            raise AssertionError(f"parsed {rows} of {len(msgs)} lines")
+        raw = criteo.batch_np_dict(labels, dense, cats, wide=False)
+        t1 = time.perf_counter()
+        batch = group.pack_batch_np(raw, dev)
+        times["parse"].append((t1 - t0) * 1e3)
+        times["pack"].append((time.perf_counter() - t1) * 1e3)
+        return batch
+    return parse
+
+
+def _train_stream(tr, ts, batches, label: str, overflow=None):
+    """``ts`` trained over ``batches`` (an iterable): (state, losses,
+    host ms of each ``next()``, ms of each step between CUDA events,
+    the batches). A step's ``n_overflow`` above 0 raises, unless
+    ``overflow`` (a list) is given: each step's count is appended to it
+    instead."""
+    losses, over, host_ms, events, seen = [], [], [], [], []
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        if b is None:
+            break
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ts, m = tr.step(ts, b)
+        ev[1].record()
+        events.append(ev)
+        losses.append(m["loss"])
+        over.append(m["n_overflow"])
+        seen.append(b)
+    torch.cuda.synchronize()
+    counts = [int(x) for x in over]
+    if overflow is not None:
+        overflow.extend(counts)
+    elif any(counts):
+        raise AssertionError(f"phase {label}: n_overflow {counts}")
+    return (ts, torch.stack(losses), host_ms,
+            [s.elapsed_time(e) for s, e in events], seen)
+
+
+def _tsv_into_topic(broker, path: str, topic: str, n_batches: int, data,
+                    label: str):
+    """``n_batches`` x ``BATCH`` TSV lines of ``data`` written to ``path``
+    (``bench.write_tsv``) and produced into partition 0 of ``topic`` on
+    ``broker``, one produce a batch."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.data import kafka_protocol
+
+    t0 = time.perf_counter()
+    bench.write_tsv(path, n_batches * BATCH, data)
+    with open(path, "rb") as f:
+        lines = f.read().splitlines()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prod = kafka_protocol.KafkaProtocolClient(broker.host, broker.port)
+    for i in range(0, len(lines), BATCH):
+        prod.produce(topic, 0, [(None, ln) for ln in lines[i:i + BATCH]])
+    prod.close()
+    log(f"phase {label}: {n_batches * BATCH} TSV lines "
+        f"({os.path.getsize(path)} bytes) written in {write_s:.3f} s and "
+        f"produced into topic {topic} of the port's MiniKafkaBroker "
+        f"(loopback, one partition) in {time.perf_counter() - t0:.3f} s")
+
+
+def _online_kafka(tmp: str, gather_err: float, apply_err: float) -> list:
+    """27 (a): the headline trained from Kafka at full width; see the
+    module's docstring. Returns the ``online_kafka`` records."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.data import criteo, kafka, kafka_protocol
+    from deeprec_tpu_torch.train import loop
+
+    label = "27 (u) (a)"
+    path = os.path.join(tmp, "criteo.tsv")
+    broker = kafka_protocol.MiniKafkaBroker(num_partitions=1)
+    try:
+        _tsv_into_topic(broker, path, KAFKA_TOPIC, KAFKA_BATCHES,
+                        criteo.SyntheticCriteo(
+                            BATCH, vocab=criteo.CRITEO_HASH_BUCKETS,
+                            seed=0), label)
+        tr = bench.build_wdl(device="cuda")
+        dev = tr.device
+        start = loop.clone_state(tr.ts)
+
+        def from_file(path):
+            for raw in criteo.criteo_file_batches(path, BATCH, as_numpy=True,
+                                                  wide=False):
+                yield tr.group.pack_batch_np(raw, dev)
+
+        want_ts, want, file_host, _, _ = _train_stream(
+            tr, loop.clone_state(start), from_file(path), label)
+
+        def dataset(max_batches, times, state=None, topic=KAFKA_TOPIC):
+            ds = kafka.KafkaDataset(
+                [topic], "chip_smoke", broker.bootstrap,
+                batch_size=BATCH, parse=_kafka_parse(tr.group, dev, times),
+                poll_timeout=KAFKA_POLL_S, max_batches=max_batches)
+            if state is not None:
+                ds.restore_state(state)
+            return ds
+
+        times = {"parse": [], "pack": []}
+        ds = dataset(KAFKA_BATCHES, times)
+        ts = loop.clone_state(start)
+        torch.cuda.synchronize()
+        _zoo_counts(reset=True)               # the main path starts here
+        t0 = time.perf_counter()
+        ts, got, host_ms, step_ms, seen = _train_stream(tr, ts, ds, label)
+        run_s = time.perf_counter() - t0
+        launches = _zoo_counts()              # the main path ends here
+        ds.close()
+        missing = [k for k in ("gather_rows", "adagrad_apply_rows",
+                               "hash_probe_insert", "init_fresh_rows")
+                   if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"phase {label}: no launch of {missing} "
+                                 f"on the Kafka-fed path ({launches})")
+        if len(seen) != KAFKA_BATCHES or not torch.equal(got, want):
+            raise AssertionError(f"phase {label}: Kafka losses "
+                                 f"{got.tolist()} != file {want.tolist()}")
+        n = _states_equal(ts, want_ts, label, "the Kafka-fed and the "
+                          "file-fed tables")
+        first = seen[0]
+        del ts, seen
+        log(f"phase {label}: the headline trained on {KAFKA_BATCHES} "
+            f"batches from KafkaDataset equals the same lines through "
+            f"criteo_file_batches bit for bit (losses "
+            f"{[round(x, 6) for x in got.tolist()]}, {n} state tensors), "
+            f"n_overflow 0; launches {launches}; {run_s:.3f} s in all")
+        log(f"phase {label}: host ms a batch of poll + parse + pack "
+            f"{[round(x, 1) for x in host_ms]} (native parse and "
+            f"batch_np_dict {[round(x, 1) for x in times['parse']]}, pack "
+            f"onto the card {[round(x, 1) for x in times['pack']]}); the "
+            f"step's ms between CUDA events {[round(x, 3) for x in step_ms]}"
+            f"; the file reader's host ms a batch "
+            f"{[round(x, 1) for x in file_host]}")
+
+        times = {"parse": [], "pack": []}
+        ts = loop.clone_state(start)
+        ds = dataset(KAFKA_STOP, times)
+        ts, part1, _, _, _ = _train_stream(tr, ts, ds, label)
+        state = ds.state()
+        ds.close()
+        if state != {f"{KAFKA_TOPIC}:0": KAFKA_STOP * BATCH}:
+            raise AssertionError(f"phase {label}: state() {state} after "
+                                 f"{KAFKA_STOP} batches")
+        ds = dataset(KAFKA_BATCHES - KAFKA_STOP, times, state)
+        ts, part2, _, _, _ = _train_stream(tr, ts, ds, label)
+        ds.close()
+        resumed = torch.cat([part1, part2])
+        if not torch.equal(resumed, want):
+            raise AssertionError(f"phase {label}: resumed losses "
+                                 f"{resumed.tolist()} != {want.tolist()}")
+        _states_equal(ts, want_ts, label, "the resumed run's and the "
+                      "file-fed tables")
+        log(f"phase {label}: stopped after batch {KAFKA_STOP} (state() "
+            f"{state}), a new KafkaDataset restore_state()d and run to "
+            f"{KAFKA_BATCHES}: losses and tables bit-equal to the run "
+            f"without the stop")
+        del ts, want_ts
+
+        # The e2e row's stream: both runs drop the same ids against the
+        # unique budgets, so n_overflow is held equal, not at 0.
+        e2e_path = os.path.join(tmp, "criteo_e2e.tsv")
+        _tsv_into_topic(broker, e2e_path, KAFKA_E2E_TOPIC, KAFKA_E2E_BATCHES,
+                        criteo.SyntheticCriteo(BATCH, vocab=200_000, seed=7),
+                        label)
+        file_over, kafka_over = [], []
+        want_ts, want, _, _, _ = _train_stream(
+            tr, loop.clone_state(start), from_file(e2e_path), label,
+            file_over)
+        ds = dataset(KAFKA_E2E_BATCHES, {"parse": [], "pack": []},
+                     topic=KAFKA_E2E_TOPIC)
+        ts, got, _, _, seen = _train_stream(tr, loop.clone_state(start), ds,
+                                            label, kafka_over)
+        ds.close()
+        if (len(seen) != KAFKA_E2E_BATCHES or not torch.equal(got, want)
+                or kafka_over != file_over):
+            raise AssertionError(
+                f"phase {label}: e2e stream from Kafka: losses "
+                f"{got.tolist()}, n_overflow {kafka_over} != file "
+                f"{want.tolist()}, {file_over}")
+        n = _states_equal(ts, want_ts, label, "the Kafka-fed and the "
+                          "file-fed tables on the e2e stream")
+        del ts, want_ts, seen
+        log(f"phase {label}: the e2e row's stream (SyntheticCriteo("
+            f"vocab=200_000, seed=7)), {KAFKA_E2E_BATCHES} batches from "
+            f"KafkaDataset equal the same lines through criteo_file_batches"
+            f" bit for bit (losses {[round(x, 6) for x in got.tolist()]}, "
+            f"{n} state tensors); n_overflow {kafka_over} on both")
+    finally:
+        broker.shutdown()
+    # The kernels on the operands of the stream's first step: its first
+    # batch on the state the runs started from (every key new).
+    tr.ts = start
+    fetch, applies, probes, draws = _compare_step_kernels(
+        tr, "adagrad", f"{label} first Kafka batch", first)
+    del tr, start, first
+    return _path_records("online_kafka", launches, fetch, applies,
+                         gather_err, apply_err, probes=probes, draws=draws)
+
+
+def _mesh_epoch_run(mesh) -> dict:
+    """27 (b) and (c) on one NCCL rank: the sharded headline by
+    ``make_epoch_step(mesh=)`` against ``make_train_step(mesh=)`` over
+    the same pool from the same state, the kernels on the epoch's first
+    step, then ``tools/scaling_model_torch.anchor_run``."""
+    from deeprec_tpu_torch import bench
+    from deeprec_tpu_torch.train import loop
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import scaling_model_torch
+
+    label = f"27 (u) (b) rank {mesh.rank} of {mesh.size}, {mesh.backend}"
+    E, K = MESH_EPOCH_EPOCHS, MESH_EPOCH_POOL
+    tr = bench.build_wdl(device=mesh.device, mesh=mesh)
+    pool = [tr.next_batch() for _ in range(K)]
+    start = loop.clone_state(tr.ts)
+    stepped = loop.clone_state(tr.ts)
+    want, ms, over = [], [], []
+    for i in range(E * K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepped, m = tr.step(stepped, pool[i % K])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(m["loss"])
+        over.append(int(m["n_overflow"]))
+    want = torch.stack(want)
+    if any(over):
+        raise AssertionError(f"phase {label}: n_overflow {over}")
+    epoch = loop.make_epoch_step(tr.group, tr.apply_fn, tr.loss_fn,
+                                 tr.sparse_opt, tr.dense_opt, n_epochs=E,
+                                 mesh=mesh)
+    stacked = loop.stack_batches(pool)
+    mesh.trace = []
+    torch.cuda.synchronize()
+    _zoo_counts(reset=True)                   # the main path starts here
+    t0 = time.perf_counter()
+    tr.ts, losses = epoch(tr.ts, stacked)
+    launches = _zoo_counts()                  # the main path ends here
+    replay_ms = epoch.replay_ms()
+    call_s = time.perf_counter() - t0
+    trace, mesh.trace = mesh.trace, None
+    run = epoch.last_run
+    missing = [k for k in ("gather_rows", "adagrad_apply_rows",
+                           "hash_probe_insert", "init_fresh_rows")
+               if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"phase {label}: no launch of {missing} in "
+                             f"the captured mesh epoch ({launches})")
+    if not (run["captured"] and run["replays"] == E * K - 1
+            and run["steps"] == E * K):
+        raise AssertionError(f"phase {label}: last_run {run}")
+    if tuple(losses.shape) != (E, K) or not torch.equal(losses.reshape(-1),
+                                                        want):
+        raise AssertionError(f"phase {label}: captured losses "
+                             f"{losses.tolist()} != stepped {want.tolist()}")
+    n = _states_equal(tr.ts, stepped, label,
+                      "the captured mesh epoch and the stepped mesh loop")
+    if tr.ts.step != stepped.step:
+        raise AssertionError(f"phase {label}: steps {tr.ts.step} vs "
+                             f"{stepped.step}")
+    captured = collections.Counter(r["kind"] for r in trace
+                                   if r.get("captured"))
+    eager0 = collections.Counter(r["kind"] for r in trace
+                                 if not r.get("captured"))
+    if captured != eager0 or captured["all_to_all"] < 1:
+        raise AssertionError(f"phase {label}: the capture holds "
+                             f"{dict(captured)}, step 0 ran {dict(eager0)}")
+    cap_bytes = collections.Counter()
+    for r in trace:
+        if r.get("captured"):
+            cap_bytes[r["kind"]] += r["bytes"]
+    out = {"losses": losses.reshape(-1).tolist(), "state_tensors": n,
+           "launches": launches, "replays": run["replays"],
+           "replay_ms": replay_ms / run["replays"],
+           "enqueue_ms": run["enqueue_s"] / run["replays"] * 1e3,
+           "stepped_ms": ms, "call_s": call_s,
+           "captured": dict(captured), "captured_bytes": dict(cap_bytes)}
+    del stepped, stacked
+    # The kernels on the operands of the epoch's first step: the pool's
+    # first batch on the state the epoch started from (every key new).
+    tr.ts = start
+    fetch, applies, probes, draws = _compare_step_kernels(
+        tr, "adagrad", f"{label} first pool batch", pool[0])
+    out["kernels"] = {"fetch": fetch, "applies": applies, "probes": probes,
+                      "draws": draws}
+    del tr, start, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["anchor"] = scaling_model_torch.anchor_run(mesh)
+    return out
+
+
+def _mesh_epoch_rank(rank, world, tmp, card, draws):
+    """A spawned rank of 27 (b): joins an NCCL group of ``world`` ranks
+    (a ``FileStore`` under ``tmp``), runs :func:`_mesh_epoch_run` and
+    writes its results to ``tmp/epoch-r<rank>.json``."""
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from deeprec_tpu_torch.parallel import mesh as meshlib
+    from deeprec_tpu_torch.parallel import multihost
+    CARD.update(card)
+    DRAW_INSTRUCTIONS.update(draws)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(
+        backend="nccl", rank=rank, world_size=world, device="cuda",
+        init_method="file://" + os.path.join(tmp, "store-epoch"))
+    try:
+        out = _mesh_epoch_run(meshlib.data_mesh(world))
+        with open(os.path.join(tmp, f"epoch-r{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_input_and_mesh_epoch(tmp: str, gather_err: float,
+                               apply_err: float) -> list:
+    """Phase 27 (u): online learning from Kafka, the captured epoch on an
+    NCCL rank and the exchange byte model's anchor; see the module's
+    docstring. Returns the ``online_kafka`` and ``sharded_epoch``
+    records."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    records = _online_kafka(tmp, gather_err, apply_err)
+    _release()
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_epoch_rank, nprocs=1, join=True,
+             args=(1, tmp, dict(CARD), dict(DRAW_INSTRUCTIONS)))
+    with open(os.path.join(tmp, "epoch-r0.json")) as f:
+        res = json.load(f)
+    label = "27 (u) (b)"
+    log(f"phase {label}: one NCCL rank (S = 1), the sharded headline by "
+        f"make_epoch_step(mesh=), {MESH_EPOCH_EPOCHS} x {MESH_EPOCH_POOL} "
+        f"steps of B={BATCH}: equal to make_train_step(mesh=) stepped over "
+        f"the same pool bit for bit (losses "
+        f"{[round(x, 6) for x in res['losses']]}, {res['state_tensors']} "
+        f"state tensors); captured, {res['replays']} replays, 0 host syncs "
+        f"between the first and the last (set_sync_debug_mode('error')); "
+        f"the capture holds {res['captured']} (bytes "
+        f"{res['captured_bytes']}); device ms a replay "
+        f"{res['replay_ms']:.3f} (CUDA events, back to back), host "
+        f"enqueue {res['enqueue_ms']:.4f} ms a replay; the stepped mesh "
+        f"loop's median synchronized step "
+        f"{float(np.median(res['stepped_ms'])):.3f} ms "
+        f"{[round(x, 3) for x in res['stepped_ms']]}; the whole call "
+        f"{res['call_s']:.3f} s; launches (step 0 and the capture) "
+        f"{res['launches']}; the rank's process in "
+        f"{time.perf_counter() - t0:.3f} s")
+    a = res["anchor"]
+    log(f"phase 27 (u) (c): tools/scaling_model_torch anchor at S = "
+        f"{a['shards']}: the sharded step's ms between CUDA events "
+        f"{[round(x, 3) for x in a['sharded_step_ms']]}, the unsharded "
+        f"step's {[round(x, 3) for x in a['unsharded_step_ms']]}; bytes a "
+        f"step traced {a['traced_bytes']}, the model's {a['model_bytes']}:"
+        f" all-to-all and all-reduce equal")
+    ker = res["kernels"]
+    sharded = _path_records("sharded_epoch", res["launches"], ker["fetch"],
+                            ker["applies"], gather_err, apply_err,
+                            probes=ker["probes"], draws=ker["draws"])
+    for rec in sharded:
+        rec["graph_replays"] = res["replays"]
+    log(f"phase 27 (u): online input and the captured mesh epoch in "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return records + sharded
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -4987,6 +5434,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tiered_") as d:
         tier_records = phase_tiered(d, gather_err, apply_err)
     _release()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_input_") as d:
+        input_records = phase_input_and_mesh_epoch(d, gather_err, apply_err)
+    _release()
     full_table["path"] = "full 65-wide table"
     records = (
         _path_records("headline", launches, k1, k2, gather_err, apply_err,
@@ -5010,7 +5460,7 @@ def main():
         + _path_records("sharded", sh_launches, sh["fetch"], sh["applies"],
                         gather_err, apply_err, probes=sh["probes"],
                         draws=sh["draws"])
-        + variant_records + tier_records)
+        + variant_records + tier_records + input_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

@@ -69,6 +69,7 @@ FILE_SECONDS = {
     "tests/test_torch_multi_tier.py": 22.2,
     "tests/test_torch_hash_probe.py": 20.3,
     "tests/test_ops_tools.py": 20.1,
+    "tests/test_torch_mesh_epoch.py": 20.1,
     "tests/test_torch_optimizers.py": 19.9,
     "tests/test_kserve.py": 19.2,
     "tests/test_torch_wdl.py": 18.7,
@@ -84,6 +85,9 @@ FILE_SECONDS = {
     "tests/test_torch_sparse_apply.py": 8.8,
     "tests/test_torch_fused_ops.py": 8.0,
     "tests/test_torch_feature_store.py": 7.8,
+    "tests/test_torch_kafka.py": 6.0,
+    "tests/test_torch_scaling_model.py": 5.5,
+    "tests/test_torch_kafka_group.py": 5.2,
     "tests/test_multihost.py": 4.8,
     "tests/test_torch_low_precision.py": 4.6,
     "tests/test_torch_keys.py": 3.7,
@@ -91,7 +95,9 @@ FILE_SECONDS = {
     "tests/test_kafka_group.py": 2.1,
     "tests/test_torch_gather.py": 1.8,
     "tests/test_data_pipeline.py": 1.6,
+    "tests/test_torch_parquet.py": 1.4,
     "tests/test_torch_input_pipeline.py": 1.3,
+    "tests/test_torch_native_ops.py": 0.1,
     "tests/test_native.py": 0.1,
 }
 UNMEASURED_SECONDS = 60.0

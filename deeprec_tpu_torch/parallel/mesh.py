@@ -14,6 +14,13 @@ card) takes ``all_gather_into_tensor``; gloo (the CPU tests) takes the
 list form. A mesh whose ``trace`` is a list records each collective
 there (its kind, the bytes this rank sends and, on a CUDA mesh, CUDA
 events around it); ``trace = None``, the default, records nothing.
+
+The tensor collectives can be captured in a CUDA graph on an NCCL mesh
+(``train/loop.make_epoch_step(mesh=)``). While a capture is under way a
+traced collective records its kind and bytes with no events, and
+``"captured": True``: a captured event would time no replay. Replays
+run no Python, so the trace holds each captured collective once.
+``all_gather_object`` pickles on the host and raises inside a capture.
 """
 
 from __future__ import annotations
@@ -25,6 +32,13 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether this thread's current stream on ``device`` is capturing a
+    CUDA graph."""
+    return (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
 
 
 class Mesh:
@@ -57,7 +71,9 @@ class Mesh:
             yield
             return
         rec = {"kind": kind, "bytes": x.numel() * x.element_size()}
-        if x.device.type == "cuda":
+        if _capturing(x.device):
+            rec["captured"] = True
+        elif x.device.type == "cuda":
             rec["events"] = (torch.cuda.Event(enable_timing=True),
                              torch.cuda.Event(enable_timing=True))
             rec["events"][0].record()
@@ -98,7 +114,10 @@ class Mesh:
 
     def all_gather_object(self, obj) -> list:
         """Every rank's picklable ``obj``, in rank order (host data:
-        checkpoint bookkeeping)."""
+        checkpoint bookkeeping); never inside a CUDA graph capture."""
+        if _capturing(self.device):
+            raise RuntimeError("all_gather_object pickles on the host and "
+                               "cannot run inside a CUDA graph capture")
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self.group)
         return out

@@ -12,12 +12,14 @@ is divided by ``B_local * S``; the dense gradients and the replicated
 tables' row gradients are summed over the ranks in one all-reduce (the
 sum that JAX's ``shard_map`` autodiff makes for device-invariant
 inputs), so every rank applies the same dense update; the loss and
-``n_overflow`` are summed too. The epoch step on a mesh is not ported.
+``n_overflow`` are summed too.
 
 The JAX package's ``make_epoch_step`` is one ``lax.scan`` over a stacked
 batch pool: no host dispatch between steps. Here, on a CUDA card, the
-step is captured once in a CUDA graph and replayed over the pool; on
-the CPU it is a loop over the pool.
+step is captured once in a CUDA graph and replayed over the pool, on an
+NCCL mesh with its collectives inside the graph; on the CPU, and on a
+gloo mesh (whose collectives cannot be captured), it is a loop over the
+pool.
 """
 
 from __future__ import annotations
@@ -253,25 +255,36 @@ def _no_host_sync():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _capture(fn):
+def _capture(fn, mesh=None):
     """``fn`` captured in a CUDA graph (recorded, not run); returns the
-    graph's replay."""
+    graph's replay. With an NCCL ``mesh`` the graph holds the
+    collectives: the card is drained first, so no collective of an
+    eager step is still in flight, and the capture is checked on this
+    thread alone ("thread_local"), as the process group's watchdog
+    thread queries the events of its finished work meanwhile."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    mode = "global"
+    if mesh is not None:
+        torch.cuda.synchronize()
+        mode = "thread_local"
+    with torch.cuda.graph(graph, capture_error_mode=mode):
         fn()
     return graph.replay
 
 
 class EpochStep:
     """``epoch(ts, stacked) -> (ts, losses)``; see
-    :func:`make_epoch_step`. After a call on the card, ``last_run``
-    holds ``steps`` (E * K), ``replays`` (graph launches, E * K - 1),
-    ``enqueue_s`` (host seconds spent enqueueing them) and ``events``
-    (CUDA events recorded around them, read by :meth:`replay_ms`)."""
+    :func:`make_epoch_step`. After a call, ``last_run`` holds ``steps``
+    (E * K), ``captured`` (whether the step ran as a CUDA graph) and
+    ``replays`` (graph launches: E * K - 1 when captured, else 0); a
+    captured call also holds ``enqueue_s`` (host seconds spent
+    enqueueing the replays) and ``events`` (CUDA events recorded around
+    them, read by :meth:`replay_ms`)."""
 
-    def __init__(self, body, n_epochs: int):
+    def __init__(self, body, n_epochs: int, mesh=None):
         self.body = body
         self.n_epochs = n_epochs
+        self.mesh = mesh
         self.last_run: Dict[str, Any] = {}
         self._replay: Optional[Callable[[], None]] = None  # holds the graph
 
@@ -279,7 +292,8 @@ class EpochStep:
         K = _pool_size(stacked)
         E = self.n_epochs
         dev = next(iter(ts.params.values())).device
-        if dev.type == "cuda":
+        if dev.type == "cuda" and (self.mesh is None
+                                   or self.mesh.backend == "nccl"):
             self.release()
             losses = self._captured(ts, stacked, K, E, dev)
         else:
@@ -287,7 +301,8 @@ class EpochStep:
                 self.body(ts, batch_at(stacked, i % K),
                           ts.step + i)["loss"]
                 for i in range(E * K)])
-            self.last_run = {"steps": E * K, "replays": 0}
+            self.last_run = {"steps": E * K, "captured": False,
+                             "replays": 0}
         ts = ts.replace(step=ts.step + E * K)
         return ts, (losses if E == 1 else losses.reshape(E, K))
 
@@ -308,15 +323,17 @@ class EpochStep:
             pos.add_(1)
             k.add_(1).remainder_(K)
 
-        # Step 0 runs eagerly: it builds the kernels and warms the
-        # libraries up, and it is the first of the E * K steps, so no
-        # step is trained twice. Capture records and runs nothing; a
-        # failed capture raises.
+        # Step 0 runs eagerly: it builds the kernels, warms the libraries
+        # up and, on a mesh, creates the NCCL communicators; it is the
+        # first of the E * K steps, so no step is trained twice. Capture
+        # records and runs nothing; a failed capture raises. Every rank
+        # of a mesh captures and replays its own graph, E * K - 1 times,
+        # in lockstep with the others.
         one()
-        self.last_run = {"steps": n, "replays": n - 1, "enqueue_s": 0.0,
-                         "events": None}
+        self.last_run = {"steps": n, "captured": True, "replays": n - 1,
+                         "enqueue_s": 0.0, "events": None}
         if n > 1:
-            self._replay = _capture(one)
+            self._replay = _capture(one, self.mesh)
             events = tuple(torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             t0 = time.perf_counter()
@@ -373,17 +390,19 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
     since the graph holds the addresses of the state and the pool; it
     first releases the previous call's graph and its memory pool
     (:meth:`EpochStep.release`). On the CPU it is a loop over the pool.
-    On a ``mesh`` it raises ``NotImplementedError``: capturing NCCL
-    collectives in a CUDA graph is not ported (ROADMAP item 12b).
+
+    ``mesh``: the step is :func:`make_train_step`'s on that mesh, each
+    rank on its own pool of local batches. On an NCCL mesh the graph
+    holds the step's collectives (the sharded tables' all-to-alls and
+    all-gathers, the gradient and loss all-reduces); step 0, eager,
+    creates the communicators, and every rank replays its graph in
+    lockstep. A gloo mesh cannot capture collectives, so there the
+    epoch runs its step loop uncaptured, on the CPU or on a card, and
+    ``last_run["captured"]`` is False.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_epoch_step on a mesh (NCCL collectives in a captured "
-            "CUDA graph) is not ported (ROADMAP item 12b); use "
-            "make_train_step(..., mesh=mesh)")
     return EpochStep(_train_body(group, apply_fn, loss_fn, sparse_opt,
-                                 dense_opt, micro_batch_num, combine_fn),
-                     n_epochs)
+                                 dense_opt, micro_batch_num, combine_fn,
+                                 mesh), n_epochs, mesh)
 
 
 def _infer_rows(group: EmbeddingGroup, ts: TrainState, tname, ids_hi,

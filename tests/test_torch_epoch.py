@@ -236,7 +236,7 @@ def test_device_counter_path_equals_the_loop(monkeypatch):
     the CPU loop's bits."""
     tr = _small_wdl()
     pool = tloop.stack_batches([tr.next_batch() for _ in range(3)])
-    monkeypatch.setattr(tloop, "_capture", lambda fn: fn)
+    monkeypatch.setattr(tloop, "_capture", lambda fn, mesh=None: fn)
     monkeypatch.setattr(tloop, "_no_host_sync", contextlib.nullcontext)
     monkeypatch.setattr(torch.cuda, "Event", lambda **kw: _Event())
     epoch = tloop.make_epoch_step(tr.group, tr.apply_fn, tr.loss_fn,

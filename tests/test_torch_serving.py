@@ -281,8 +281,14 @@ def test_port_never_imports_jax():
         "deeprec_tpu_torch.serving.feature_store, "
         "deeprec_tpu_torch.serving.resp, deeprec_tpu_torch.serving.native, "
         "deeprec_tpu_torch.serving.sdk, deeprec_tpu_torch.serving.sdk.client, "
-        "deeprec_tpu_torch.tools, deeprec_tpu_torch.tools.low_precision\n"
+        "deeprec_tpu_torch.tools, deeprec_tpu_torch.tools.low_precision, "
+        "deeprec_tpu_torch.data.kafka_protocol, "
+        "deeprec_tpu_torch.data.kafka, deeprec_tpu_torch.data.kafka_group, "
+        "deeprec_tpu_torch.data.parquet\n"
         "deeprec_tpu_torch.native.parse_criteo(b'1\\t2\\n', 1)\n"
+        "deeprec_tpu_torch.native.hash_bytes(['a'])\n"
+        "deeprec_tpu_torch.native.hash_offset_unique("
+        "deeprec_tpu_torch.native.np.ones((2, 2), 'int64'), hash=True)\n"
         "deeprec_tpu_torch.serving.native.load()\n"
         "deeprec_tpu_torch.serving.kserve.hash_tokens(['a'])\n"
         "sys.path.insert(0, 'tools')\n"
@@ -290,7 +296,8 @@ def test_port_never_imports_jax():
         "import zoo_auc_torch, zoo_delta_torch, model_benchmark_torch, "
         "write_bench_zoo_torch, serving_benchmark_torch, "
         "step_breakdown_torch, kernel_benchmark_torch, env_collect_torch, "
-        "bench_hostkv_torch, chip_smoke\n"
+        "bench_hostkv_torch, scaling_model_torch, chip_smoke\n"
+        "scaling_model_torch.model(2, t_compute_ms=10.0)\n"
         "env_collect_torch.collect(touch_device=False)\n"
         "train_zoo_torch.columns(train_zoo_torch.parse_args(\n"
         "    ['wdl', '--ev', '--cbf', '--filter_freq', '2']))\n"

@@ -224,7 +224,7 @@ class _Event:
 def test_device_counter_path_equals_the_step_loop(run, monkeypatch):
     p = _port(run)
     want_ts, want = _eager_loop(p, tloop.clone_state(p.ts))
-    monkeypatch.setattr(tloop, "_capture", lambda fn: fn)
+    monkeypatch.setattr(tloop, "_capture", lambda fn, mesh=None: fn)
     monkeypatch.setattr(tloop, "_no_host_sync", contextlib.nullcontext)
     monkeypatch.setattr(torch.cuda, "Event", lambda **kw: _Event())
     epoch = tloop.make_epoch_step(p.group, p.afn, p.loss, p.sopt, p.dopt,

@@ -638,6 +638,79 @@ def serving(mesh, tmp, ckpt: str, ckpt_s2: str, redis_url: str):
     return out
 
 
+# -- the epoch step on the mesh (tests/test_torch_mesh_epoch.py) -------------
+
+def _dense_arrays(params, prefix: str) -> dict:
+    return {f"{prefix}dense/{k}": v.detach().numpy()
+            for k, v in params.items()}
+
+
+def epoch(mesh, tmp, pool: int, n_epochs: int):
+    """The graft WDL on the mesh, trained from one state twice over a
+    pool of ``pool`` local batches for ``n_epochs`` epochs: by
+    ``make_train_step(mesh=)`` stepped over the pool (``step/``) and by
+    ``make_epoch_step(mesh=)`` (``epoch/``, with its losses ``[E, K]``
+    and ``captured``)."""
+    from deeprec_tpu_torch.train import loop as trainlib
+    group, model, afn, loss_fn, sopt, dopt = wdl_parts(mesh.size)
+    ts = trainlib.create_train_state(group, model.state_dict(), dopt, sopt,
+                                     "cpu", mesh)
+    batches = [group.pack_batch_np(local_slice(raw, mesh.rank, mesh.size),
+                                   "cpu")
+               for raw in global_batches(pool)]
+    stepped = trainlib.clone_state(ts)
+    step = trainlib.make_train_step(group, afn, loss_fn, sopt, dopt,
+                                    mesh=mesh)
+    losses, overflow = [], []
+    for i in range(n_epochs * pool):
+        stepped, m = step(stepped, batches[i % pool])
+        losses.append(float(m["loss"]))
+        overflow.append(int(m["n_overflow"]))
+    run = trainlib.make_epoch_step(group, afn, loss_fn, sopt, dopt,
+                                   n_epochs=n_epochs, mesh=mesh)
+    ts, ep_losses = run(ts, trainlib.stack_batches(batches))
+    return dict(table_arrays(group, stepped.ev, "step/"),
+                **_dense_arrays(stepped.params, "step/"),
+                **table_arrays(group, ts.ev, "epoch/"),
+                **_dense_arrays(ts.params, "epoch/"),
+                **{"step/loss": np.array(losses),
+                   "step/n_overflow": np.array(overflow),
+                   "step/step": np.array(stepped.step),
+                   "epoch/loss": ep_losses.numpy(),
+                   "epoch/step": np.array(ts.step),
+                   "epoch/captured": np.array(run.last_run["captured"]),
+                   "epoch/replays": np.array(run.last_run["replays"]),
+                   "placement": np.array(
+                       sorted(group.placement_plan().items()))})
+
+
+# -- a traced step (tests/test_torch_scaling_model.py) -----------------------
+
+def step_trace(mesh, tmp, warm: int):
+    """The graft WDL on the mesh: ``warm`` steps, then one with
+    ``Mesh.trace`` on; the bytes each collective kind sent and its
+    calls (``bytes/<kind>``, ``calls/<kind>``), with the dense params'
+    bytes and the step's placement."""
+    from deeprec_tpu_torch.train import loop as trainlib
+    group, model, afn, loss_fn, sopt, dopt = wdl_parts(mesh.size)
+    ts = trainlib.create_train_state(group, model.state_dict(), dopt, sopt,
+                                     "cpu", mesh)
+    step = trainlib.make_train_step(group, afn, loss_fn, sopt, dopt,
+                                    mesh=mesh)
+    for i, raw in enumerate(global_batches(warm + 1)):
+        if i == warm:
+            mesh.trace = []
+        ts, _ = step(ts, group.pack_batch_np(
+            local_slice(raw, mesh.rank, mesh.size), "cpu"))
+    out = {"placement": np.array(sorted(group.placement_plan().items()))}
+    for rec in mesh.trace:
+        for k, v in (("bytes", rec["bytes"]), ("calls", 1)):
+            key = f"{k}/{rec['kind']}"
+            out[key] = out.get(key, 0) + v
+    mesh.trace = None
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 CASES = {"mesh_suite": mesh_suite, "sharded_parity": sharded_parity,
          "variants": variants, "multi_tier": multi_tier,
-         "serving": serving}
+         "serving": serving, "epoch": epoch, "step_trace": step_trace}
