@@ -1015,6 +1015,7 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
     from deeprec_tpu_torch.embedding import hash_table as ht
     from deeprec_tpu_torch.ops.kernels import hash_probe
     from deeprec_tpu_torch.utils import keys as keylib
+    from deeprec_tpu_torch.utils import trace
     n = qhi.numel()
     n_rows, row = rows0.shape
     W = row // 2
@@ -1035,8 +1036,9 @@ def compare_probe(label: str, kind: str, rows0, qhi, qlo, mask,
         rounds = f"plain {rounds} wide rounds"
     else:
         kt, pt = ht.HashTable(rows0.clone()), ht.HashTable(rows0.clone())
-        _, ks, kn = ht.find_or_insert(kt, qhi, qlo, mask, max_probes)
-        k_rounds = int(hash_probe.last_rounds)
+        (_, ks, kn), counters = trace.counted(
+            lambda: ht.find_or_insert(kt, qhi, qlo, mask, max_probes))
+        k_rounds = int(counters["probe_rounds"])
         stats = {}
         _, ps, pn = ht.find_or_insert_reference(pt, qhi, qlo, mask,
                                                 max_probes, stats=stats)

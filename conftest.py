@@ -91,12 +91,14 @@ FILE_SECONDS = {
     "tests/test_multihost.py": 4.8,
     "tests/test_torch_low_precision.py": 4.6,
     "tests/test_torch_keys.py": 3.7,
+    "tests/test_torch_trace.py": 12.5,
     "tests/test_torch_init_rows.py": 2.2,
     "tests/test_kafka_group.py": 2.1,
     "tests/test_torch_gather.py": 1.8,
     "tests/test_data_pipeline.py": 1.6,
     "tests/test_torch_parquet.py": 1.4,
     "tests/test_torch_input_pipeline.py": 1.3,
+    "tests/test_torch_trace_cuda.py": 0.1,
     "tests/test_torch_native_ops.py": 0.1,
     "tests/test_native.py": 0.1,
 }

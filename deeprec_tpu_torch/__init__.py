@@ -2,7 +2,10 @@
 
 The package mirrors the JAX package's layout file for file: each module
 here has exactly one counterpart in ``deeprec_tpu/`` and is held against
-it by the parity tests in ``tests/test_torch_*.py``. It imports
+it by the parity tests in ``tests/test_torch_*.py``, except the port's
+own: the hand-written kernels (``ops/kernels`` over ``csrc``) and the
+recorder of spans and counters inside the port (``utils/trace.py``,
+the program side of ``torch.profiler``). It imports
 ``torch`` and never JAX, so it runs on a machine without JAX.
 
 Covered so far, for the headline WDL model: the serving path (hash-table

@@ -35,6 +35,7 @@ import torch
 
 from deeprec_tpu_torch.ops.kernels import hash_probe
 from deeprec_tpu_torch.utils import keys as keylib
+from deeprec_tpu_torch.utils import trace
 
 BUCKET_W = 64
 WIDE_ROWS = 2
@@ -230,10 +231,19 @@ def find_or_insert(table: HashTable, qhi, qlo, insert_mask,
     ``capacity`` for not-found / overflow / sentinel ids; callers must
     initialize the row data of ``is_new`` slots. CUDA tensors go through
     the P1 kernel, CPU tensors through :func:`find_or_insert_reference`.
+    While tracing is on (``utils/trace.py``) either adds the rounds it
+    ran into the counters ``probe_rounds`` and ``probe_rounds_max``
+    (the plain version's as the kernel counts them: up to its first
+    all-dead round).
     """
     if table.key_rows.device.type == "cpu":
-        return find_or_insert_reference(table, qhi, qlo, insert_mask,
-                                        max_probes, max_rounds)
+        stats = {} if trace.on() else None
+        out = find_or_insert_reference(table, qhi, qlo, insert_mask,
+                                       max_probes, max_rounds, stats)
+        if stats is not None:
+            hash_probe.count_rounds(stats["first_dead_round"]
+                                    or stats["rounds"])
+        return out
     if table.claim is None:
         table.claim = hash_probe.claim_buffer(table.capacity,
                                               table.key_rows.device)

@@ -33,6 +33,7 @@ from deeprec_tpu_torch.ops.kernels import gather
 from deeprec_tpu_torch.ops.kernels import init_rows as init_kernel
 from deeprec_tpu_torch.utils import keys as keylib
 from deeprec_tpu_torch.utils import stateless_random as srand
+from deeprec_tpu_torch.utils import trace
 
 
 # The global step a training lookup stamps into versions: a Python int,
@@ -199,6 +200,18 @@ def _default_sel(state: EVState, qhi, qlo):
     return None if dvd == 1 else keylib.mod_of(qhi, qlo, dvd)
 
 
+def _draw(cfg: cfglib.TableConfig, state: EVState, fresh, slots, qhi, qlo,
+          salt: int) -> None:
+    """P2: the initializer's rows of the ``fresh`` entries, written in
+    place. While tracing is on it is the span ``draw``, and the rows
+    drawn go to the counter ``fresh_rows``."""
+    with trace.span("draw"):
+        init_kernel.init_fresh(state.values, fresh, slots, qhi, qlo,
+                               cfg.initializer, cfg.init_scale, salt)
+        if trace.on():
+            trace.count("fresh_rows", fresh.sum())
+
+
 def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
                  global_step: Step, salt: int = 0
                  ) -> tuple[EVState, LookupResult]:
@@ -232,10 +245,10 @@ def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
     else:
         insert_mask = is_real
 
-    _, slots, is_new = ht.find_or_insert(
-        state.table, qhi, qlo, insert_mask, max_probes=cfg.max_probes)
-    init_kernel.init_fresh(state.values, is_new, slots, qhi, qlo,
-                           cfg.initializer, cfg.init_scale, salt)
+    with trace.span("probe"):
+        _, slots, is_new = ht.find_or_insert(
+            state.table, qhi, qlo, insert_mask, max_probes=cfg.max_probes)
+    _draw(cfg, state, is_new, slots, qhi, qlo, salt)
     safe = torch.clamp(slots, max=capacity).to(torch.int64)
     prev_versions = torch.where(is_new, global_step,
                                 state.versions[safe]).to(torch.int32)
@@ -254,9 +267,10 @@ def lookup_train(cfg: cfglib.TableConfig, state: EVState, qhi, qlo, counts,
     admitted = slots < capacity
     if isinstance(f, cfglib.CounterFilter) and f.filter_freq > 0:
         admitted = admitted & (state.freqs[safe] >= f.filter_freq)
-    rows = gather.gather_rows(state.values, slots, admitted,
-                              state.default_bank,
-                              _default_sel(state, qhi, qlo))
+    with trace.span("fetch"):
+        rows = gather.gather_rows(state.values, slots, admitted,
+                                  state.default_bank,
+                                  _default_sel(state, qhi, qlo))
     if cfg.block_num > 1:
         rows = _dyn_dim_mask(cfg, rows, state.freqs[safe])
     return state, LookupResult(slots=slots, rows=rows, admitted=admitted,
@@ -339,8 +353,9 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
     dev = qhi.device
     is_real = qhi != keylib.EMPTY_HI
 
-    _, slots, is_new = ht.find_or_insert(
-        state.table, qhi, qlo, is_real, max_probes=cfg.max_probes)
+    with trace.span("probe"):
+        _, slots, is_new = ht.find_or_insert(
+            state.table, qhi, qlo, is_real, max_probes=cfg.max_probes)
     n_table_overflow = (is_real & (slots >= capacity)).sum(dtype=torch.int32)
 
     tokens, in_tab, rep_token, rep = claim_dedup(slots, is_real, capacity)
@@ -387,8 +402,7 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         # inserted beyond the budget and reused slots alike.
         raw_prev = state.versions[usafe]
         u_new = u_in & ((raw_prev < 0) | u_new)
-        init_kernel.init_fresh(state.values, u_new, uslots, uhi, ulo,
-                               cfg.initializer, cfg.init_scale, salt)
+        _draw(cfg, state, u_new, uslots, uhi, ulo, salt)
         prev_versions = torch.where(u_new, global_step, raw_prev)
         widx, ok = _drop_idx(uslots, capacity)
         state.versions.index_put_((widx,), torch.where(
@@ -398,8 +412,7 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
         # occurrence level so beyond-budget inserts initialize too.
         # ``is_new`` marks one occurrence of each inserted id, which
         # draws its row once.
-        init_kernel.init_fresh(state.values, is_new, slots, qhi, qlo,
-                               cfg.initializer, cfg.init_scale, salt)
+        _draw(cfg, state, is_new, slots, qhi, qlo, salt)
         u_new = u_in & u_new
         prev_versions = step_fill(uslots.shape, global_step, dev)
     prev_versions = prev_versions.to(torch.int32)
@@ -414,9 +427,10 @@ def lookup_train_occ(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
     else:
         admitted = u_in
 
-    rows = gather.gather_rows(state.values, uslots, admitted,
-                              state.default_bank,
-                              _default_sel(state, uhi, ulo))
+    with trace.span("fetch"):
+        rows = gather.gather_rows(state.values, uslots, admitted,
+                                  state.default_bank,
+                                  _default_sel(state, uhi, ulo))
     if cfg.block_num > 1:
         rows = _dyn_dim_mask(cfg, rows, freq_rows)
     return state, OccLookup(
@@ -458,7 +472,8 @@ def lookup_train_static(cfg: cfglib.TableConfig, state: EVState, qhi, qlo,
     uhi = pick(qhi, keylib.EMPTY_HI)
     ulo = pick(qlo, keylib.EMPTY_LO)
     uslots = pick(slots, N)
-    rows = gather.gather_rows(state.values, uslots)
+    with trace.span("fetch"):
+        rows = gather.gather_rows(state.values, uslots)
     lk = LookupResult(
         slots=uslots, rows=rows, admitted=uslots < N,
         is_new=torch.zeros(uslots.shape, dtype=torch.bool, device=dev),

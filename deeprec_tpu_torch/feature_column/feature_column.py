@@ -57,6 +57,7 @@ from deeprec_tpu_torch.embedding import sharded
 from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.utils import keys as keylib
 from deeprec_tpu_torch.utils import stateless_random as srand
+from deeprec_tpu_torch.utils import trace
 
 
 def _member_salt(i: int) -> tuple[int, int]:
@@ -687,7 +688,14 @@ class EmbeddingGroup:
         ``batch`` are then this rank's. A weighted column takes its
         weights from ``batch[column.weight_name]``. A dyn-dim split
         table's hot sibling looks up the same ids; its columns' lookups
-        are filed as ``<column>#hot``."""
+        are filed as ``<column>#hot``.
+
+        While tracing is on (``utils/trace.py``) each physical table's
+        lookup is the span ``lookup/<table>`` (P1, P2 and K1 inside it
+        are ``probe``, ``draw`` and ``fetch``) and counts, under
+        ``<table>/``: ``probe_rounds`` and ``probe_rounds_max`` (P1's
+        rounds), ``fresh_rows`` (the rows P2 drew), ``dropped_ids`` (its
+        ``budget_overflow``) and ``steps``."""
         self._check_mesh(mesh)
         lks: Dict[str, ev.LookupResult] = {}
         cols: Dict[str, ColumnLookup] = {}
@@ -701,9 +709,13 @@ class EmbeddingGroup:
                               (self._dyn_hot.get(tname), "#hot")):
                 if t is None:
                     continue
-                (states[t], lks[t], inverse, mask, routing,
-                 budget_overflow[t], adp) = self._table_lookup(
-                    t, states[t], ids_hi, ids_lo, global_step, budget, mesh)
+                with trace.span(f"lookup/{t}", table=t):
+                    (states[t], lks[t], inverse, mask, routing,
+                     budget_overflow[t], adp) = self._table_lookup(
+                        t, states[t], ids_hi, ids_lo, global_step, budget,
+                        mesh)
+                    trace.count("dropped_ids", budget_overflow[t])
+                    trace.count("steps", 1, device=ids_hi.device)
                 off = 0
                 for c, w, cw in zip(tcols, widths, weights):
                     cols[c.name + suffix] = ColumnLookup(
@@ -833,9 +845,10 @@ class EmbeddingGroup:
         same update."""
         for tname, g in grad_rows.items():
             st = states[tname]
-            slot_states[tname], st.values = opt.apply(
-                self.tables[tname], slot_states[tname], st.values,
-                gl.lks[tname], g, global_step, lr=lr)
+            with trace.span(f"sparse_apply/{tname}"):
+                slot_states[tname], st.values = opt.apply(
+                    self.tables[tname], slot_states[tname], st.values,
+                    gl.lks[tname], g, global_step, lr=lr)
         return slot_states, states
 
     def shrink(self, states, global_step: int):

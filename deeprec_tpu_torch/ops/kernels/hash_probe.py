@@ -18,11 +18,12 @@ launches of each wrapper.
 so: the table that owns it passes it to every insert, ordered on one
 stream, as the training step's are.
 
-``last_rounds`` is a one-element int32 tensor on the card that the last
-``find_or_insert`` launch fills with the rounds it ran (the fast round
+Each ``find_or_insert`` launch writes the rounds it ran (the fast round
 counts 1; a call stops at a round whose every id is dead, see the
-kernel's header). Reading it waits for the card: only tools read it,
-nothing on a step's path does.
+kernel's header) into its scratch; while tracing is on
+(``utils/trace.py``) the launch adds that slot into the counters
+``probe_rounds`` (their sum) and ``probe_rounds_max``, on the card, so a
+step captured in a CUDA graph counts every replay's rounds.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ import threading
 import torch
 
 from deeprec_tpu_torch.ops.kernels import build
+from deeprec_tpu_torch.utils import trace
 
 launches = {"find": 0, "find_or_insert": 0}
-last_rounds = None
 _lock = threading.Lock()
 _fns: dict = {}
 
@@ -142,9 +143,9 @@ def find_or_insert(key_rows: torch.Tensor, qhi: torch.Tensor,
     """``(slots [n] int32, is_new [n] bool)``; inserts the absent ids
     with ``insert_mask`` into ``key_rows`` in place. ``claim``: the
     table's claim buffer; ``budget``: ids a straggler round takes;
-    ``max_rounds``: rounds at most, the fast round included. The rounds
-    run go to :data:`last_rounds`."""
-    global last_rounds
+    ``max_rounds``: rounds at most, the fast round included. While
+    tracing is on, the rounds run go to the counters ``probe_rounds``
+    and ``probe_rounds_max``."""
     n_rows, W, n = _check_ids("hash_probe.find_or_insert", key_rows, qhi,
                               qlo)
     dev = key_rows.device
@@ -182,7 +183,14 @@ def find_or_insert(key_rows: torch.Tensor, qhi: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"hash_probe.find_or_insert: kernel launch "
                            f"failed, cudaError {rc}")
-    at = 3 * n + 3 * budget + 1
-    last_rounds = scratch[at:at + 1]
+    if trace.on():
+        count_rounds(scratch[3 * n + 3 * budget + 1])
     _count("find_or_insert")
     return slots, is_new
+
+
+def count_rounds(rounds) -> None:
+    """Add an insert's rounds (an int or a 0-dim tensor) into the
+    counters ``probe_rounds`` and ``probe_rounds_max``."""
+    trace.count("probe_rounds", rounds)
+    trace.count("probe_rounds_max", rounds, reduce="max")

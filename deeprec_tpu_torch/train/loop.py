@@ -38,6 +38,7 @@ from deeprec_tpu_torch.embedding import variable as ev
 from deeprec_tpu_torch.feature_column.feature_column import (
     EmbeddingGroup, SequenceEmbeddingColumn)
 from deeprec_tpu_torch.utils import keys as keylib
+from deeprec_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -118,12 +119,14 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
     n_ranks = 1 if mesh is None else mesh.size
 
     def grads_of(params, rows, batch, gl):
-        out = apply_fn(group.model_params(params),
-                       combine(gl, rows, params), batch)
-        per_ex = loss_fn(out, batch)
-        loss = per_ex.sum() / (per_ex.shape[0] * n_mb * n_ranks)
-        return loss, torch.autograd.grad(
-            loss, list(params.values()) + list(rows.values()))
+        with trace.span("forward"):
+            out = apply_fn(group.model_params(params),
+                           combine(gl, rows, params), batch)
+            per_ex = loss_fn(out, batch)
+            loss = per_ex.sum() / (per_ex.shape[0] * n_mb * n_ranks)
+        with trace.span("backward"):
+            return loss, torch.autograd.grad(
+                loss, list(params.values()) + list(rows.values()))
 
     def body(ts: TrainState, batch, gs):
         states, gl = group.lookup_train(ts.ev, batch, gs, mesh)
@@ -165,7 +168,8 @@ def _train_body(group: EmbeddingGroup, apply_fn, loss_fn, sparse_opt,
             tot = mesh.all_reduce_(torch.stack([loss.to(torch.float64),
                                                 overflow.to(torch.float64)]))
             loss, overflow = tot[0].to(loss.dtype), tot[1].to(torch.int32)
-        dense_opt.apply(ts.params, dense_g, ts.dense_opt)
+        with trace.span("dense_apply"):
+            dense_opt.apply(ts.params, dense_g, ts.dense_opt)
         group.apply_gradients(sparse_opt, ts.slots, states, gl, row_g, gs)
         return {"loss": loss, "n_overflow": overflow}
 
@@ -202,6 +206,12 @@ def make_train_step(group: EmbeddingGroup, apply_fn: Callable,
     ``mesh``: the step runs on each rank of it, on the rank's local
     batch and state (the module docstring says what is summed); the
     metrics are the global batch's on every rank.
+
+    While tracing is on (``utils/trace.py``) the step records the spans
+    ``lookup/<table>`` (with ``probe``, ``draw`` and ``fetch``),
+    ``forward`` (combine, towers, loss), ``backward``, ``dense_apply``
+    and ``sparse_apply/<table>``, and counts each table's counters
+    (:meth:`EmbeddingGroup.lookup_train`); off, it does neither.
     """
     body = _train_body(group, apply_fn, loss_fn, sparse_opt, dense_opt,
                        micro_batch_num, combine_fn, mesh)
@@ -272,14 +282,55 @@ def _capture(fn, mesh=None):
     return graph.replay
 
 
+_MEMORY_COUNTS = ("num_device_alloc", "num_device_free",
+                  "num_sync_all_streams")
+
+
+def _memory_counts() -> Dict[str, int]:
+    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls and
+    syncs of every stream so far (zeros before CUDA is initialised)."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in _MEMORY_COUNTS}
+
+
 class EpochStep:
     """``epoch(ts, stacked) -> (ts, losses)``; see
     :func:`make_epoch_step`. After a call, ``last_run`` holds ``steps``
     (E * K), ``captured`` (whether the step ran as a CUDA graph) and
-    ``replays`` (graph launches: E * K - 1 when captured, else 0); a
-    captured call also holds ``enqueue_s`` (host seconds spent
-    enqueueing the replays) and ``events`` (CUDA events recorded around
-    them, read by :meth:`replay_ms`)."""
+    ``replays`` (graph launches: E * K - 1 when captured, else 0).
+
+    A captured call's ``last_run`` is its record, which
+    ``utils.trace.recorder.calls`` also keeps:
+
+    * ``call``: the call's sequence number in the process;
+    * ``events``: CUDA events recorded around the replays (read by
+      :meth:`replay_ms`; None for a call of one step), and
+      ``enqueue_s``, the host seconds spent enqueueing the replays;
+    * ``release_events``: CUDA events at the top and at the end of the
+      :meth:`release` that ran since the previous call, whoever called
+      it (None where none did), and ``step0_event``, at the end of eager
+      step 0. All are recorded on the one stream outside the capture,
+      so after the previous call's ``events[1]`` they split the device's
+      gap up to this call's ``events[0]`` into the caller's work between
+      the calls, the release, step 0 (with the call's own set-up) and
+      the capture;
+    * ``host_ns``: host nanoseconds of the phases ``epoch.release.wait``
+      (the wait for the previous call's replays), ``epoch.release.free``
+      (dropping its graph and ``torch.cuda.empty_cache()``),
+      ``epoch.step0`` (from the release's end), ``epoch.capture.enter``
+      (the ``torch.cuda.graph`` entry, up to the first line inside the
+      block), ``epoch.capture.record`` (the step recorded),
+      ``epoch.capture.instantiate`` (the block's exit) and
+      ``epoch.enqueue`` (the replays'); while tracing is on each phase
+      is also a span (``utils/trace.py``);
+    * ``memory``: how much ``torch.cuda.memory_stats()``'s
+      ``num_device_alloc``, ``num_device_free`` and
+      ``num_sync_all_streams`` grew from the release (else the call's
+      start) to the call's end;
+    * ``counters``: with tracing on, the counters of the call's steps,
+      eager step 0's and every replay's (``EmbeddingGroup.lookup_train``
+      names them; read them after the call); else None.
+    """
 
     def __init__(self, body, n_epochs: int, mesh=None):
         self.body = body
@@ -287,6 +338,8 @@ class EpochStep:
         self.mesh = mesh
         self.last_run: Dict[str, Any] = {}
         self._replay: Optional[Callable[[], None]] = None  # holds the graph
+        # The next captured call's record, opened by a release before it.
+        self._next: Optional[Dict[str, Any]] = None
 
     def __call__(self, ts: TrainState, stacked):
         K = _pool_size(stacked)
@@ -294,7 +347,6 @@ class EpochStep:
         dev = next(iter(ts.params.values())).device
         if dev.type == "cuda" and (self.mesh is None
                                    or self.mesh.backend == "nccl"):
-            self.release()
             losses = self._captured(ts, stacked, K, E, dev)
         else:
             losses = torch.stack([
@@ -306,7 +358,21 @@ class EpochStep:
         ts = ts.replace(step=ts.step + E * K)
         return ts, (losses if E == 1 else losses.reshape(E, K))
 
+    def _open(self) -> Dict[str, Any]:
+        """The next captured call's record, opened by whichever comes
+        first: a release or the call."""
+        if self._next is None:
+            self._next = {"call": trace.recorder.next_call(), "host_ns": {},
+                          "release_events": None,
+                          "memory": _memory_counts()}
+        return self._next
+
     def _captured(self, ts, stacked, K: int, E: int, dev):
+        rec = self._open()
+        self.release()
+        self._next = None
+        phases = trace.Phases(rec["host_ns"], rec["call"])
+        phases.next("epoch.step0")
         n = E * K
         # Device counters: the global step, the pool index and the loss
         # slot, advanced in place by the step itself, so a replay needs
@@ -323,39 +389,68 @@ class EpochStep:
             pos.add_(1)
             k.add_(1).remainder_(K)
 
+        def recorded():
+            # Runs once, while the graph records the step.
+            phases.next("epoch.capture.record")
+            one()
+            phases.next("epoch.capture.instantiate")
+
         # Step 0 runs eagerly: it builds the kernels, warms the libraries
-        # up and, on a mesh, creates the NCCL communicators; it is the
-        # first of the E * K steps, so no step is trained twice. Capture
-        # records and runs nothing; a failed capture raises. Every rank
-        # of a mesh captures and replays its own graph, E * K - 1 times,
-        # in lockstep with the others.
-        one()
-        self.last_run = {"steps": n, "captured": True, "replays": n - 1,
-                         "enqueue_s": 0.0, "events": None}
-        if n > 1:
-            self._replay = _capture(one, self.mesh)
-            events = tuple(torch.cuda.Event(enable_timing=True)
-                           for _ in range(2))
-            t0 = time.perf_counter()
-            with _no_host_sync():
-                events[0].record()
-                for _ in range(n - 1):
-                    self._replay()
-                events[1].record()
-            self.last_run.update(enqueue_s=time.perf_counter() - t0,
-                                 events=events)
+        # up, makes the counters' accumulators while tracing is on and,
+        # on a mesh, creates the NCCL communicators; it is the first of
+        # the E * K steps, so no step is trained twice. Capture records
+        # and runs nothing; a failed capture raises. Every rank of a mesh
+        # captures and replays its own graph, E * K - 1 times, in
+        # lockstep with the others.
+        with trace.recorder.call_counters() as counters:
+            one()
+            step0 = torch.cuda.Event(enable_timing=True)
+            step0.record()
+            rec.update(steps=n, captured=True, replays=n - 1,
+                       enqueue_s=0.0, events=None, step0_event=step0,
+                       counters=counters)
+            self.last_run = rec
+            if n > 1:
+                phases.next("epoch.capture.enter")
+                self._replay = _capture(recorded, self.mesh)
+                events = tuple(torch.cuda.Event(enable_timing=True)
+                               for _ in range(2))
+                phases.next("epoch.enqueue")
+                t0 = time.perf_counter()
+                with _no_host_sync():
+                    events[0].record()
+                    for _ in range(n - 1):
+                        self._replay()
+                    events[1].record()
+                rec.update(enqueue_s=time.perf_counter() - t0,
+                           events=events)
+        phases.stop()
+        now = _memory_counts()
+        rec["memory"] = {c: now[c] - rec["memory"][c] for c in now}
+        trace.recorder.calls.append(rec)
         return losses
 
     def release(self):
         """Drop the last call's graph and return its private memory pool
         to the card, after its replays end (waits for them). Each call
         on the card does this first, so the card's reserved memory stays
-        level from call to call."""
+        level from call to call. The next call's record holds this
+        release's events and times."""
         if self._replay is None:
             return
+        rec = self._open()
+        top = torch.cuda.Event(enable_timing=True)
+        top.record()
+        phases = trace.Phases(rec["host_ns"], rec["call"])
+        phases.next("epoch.release.wait")
         self.last_run["events"][1].synchronize()
+        phases.next("epoch.release.free")
         self._replay = None
         torch.cuda.empty_cache()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        phases.stop()
+        rec["release_events"] = (top, end)
 
     def replay_ms(self) -> float:
         """Device milliseconds from the first replay of the last call on
@@ -389,7 +484,10 @@ def make_epoch_step(group: EmbeddingGroup, apply_fn: Callable,
     pool give the same bits as the eager loop. Each call captures anew,
     since the graph holds the addresses of the state and the pool; it
     first releases the previous call's graph and its memory pool
-    (:meth:`EpochStep.release`). On the CPU it is a loop over the pool.
+    (:meth:`EpochStep.release`). Each such call's phases, timed on the
+    host and between CUDA events, and with tracing on its counters, are
+    its record (:class:`EpochStep`). On the CPU it is a loop over the
+    pool.
 
     ``mesh``: the step is :func:`make_train_step`'s on that mesh, each
     rank on its own pool of local batches. On an NCCL mesh the graph

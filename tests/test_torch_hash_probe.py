@@ -26,6 +26,7 @@ import torch_probe_cases as pc
 from deeprec_tpu_torch.embedding import hash_table as ht
 from deeprec_tpu_torch.ops.kernels import build, hash_probe
 from deeprec_tpu_torch.utils import keys as keylib
+from deeprec_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 CASES = pc.cases()
@@ -64,7 +65,8 @@ def _run_kernel_and_plain(capacity, ops, dev):
             assert torch.equal(got, want)
             continue
         mask = torch.from_numpy(op[2]).to(dev)
-        _, s_k, n_k = ht.find_or_insert(kt, hi, lo, mask)
+        (_, s_k, n_k), counters = trace.counted(
+            lambda: ht.find_or_insert(kt, hi, lo, mask))
         stats = {}
         _, s_p, n_p = ht.find_or_insert_reference(pt, hi, lo, mask,
                                                   stats=stats)
@@ -72,7 +74,7 @@ def _run_kernel_and_plain(capacity, ops, dev):
         assert torch.equal(n_k, n_p)
         assert torch.equal(kt.key_rows, pt.key_rows)
         want = stats["first_dead_round"] or stats["rounds"]
-        assert int(hash_probe.last_rounds) == want
+        assert int(counters["probe_rounds"]) == want
 
 
 @pytest.mark.cuda

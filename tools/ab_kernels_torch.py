@@ -220,6 +220,7 @@ def ab_probe(versions, label, rows0, qhi, qlo, mask, max_probes) -> dict:
     import chip_smoke
     from deeprec_tpu_torch.embedding import hash_table as ht
     from deeprec_tpu_torch.ops.kernels import hash_probe
+    from deeprec_tpu_torch.utils import trace
     n = qhi.numel()
     R, M = ht._wide_rows(rows0, max_probes), ht._straggler_budget(n)
     claim = hash_probe.claim_buffer(rows0.shape[0] * rows0.shape[1] // 2,
@@ -240,8 +241,8 @@ def ab_probe(versions, label, rows0, qhi, qlo, mask, max_probes) -> dict:
         elif not all(torch.equal(a, b) for a, b in zip(out, first)):
             raise AssertionError(f"{label}: the versions differ")
     with using(None):
-        run(128)
-        rounds = int(hash_probe.last_rounds)
+        _, counters = trace.counted(lambda: run(128))
+        rounds = int(counters["probe_rounds"])
     del first
     host = {name: [] for name, _ in versions}
     for name, libs in versions + versions[::-1]:
