@@ -369,6 +369,31 @@ non-zero:
    CUDA events), the traced all-to-all and all-reduce bytes of a step
    against the byte model's; a difference fails the phase.
 
+28. (v) ``occ_combine``, run right after phase 7: the embedding combine
+   and its backward (``ops/kernels/occ_combine.py``, the ``occ_``
+   kernels of ``csrc/occ_combine.cu``) against the plain version at the
+   benchmark cells' shapes: DLRM's one table (B = 6,912, 26 columns of
+   one summed id at dim 128) and WDL's two (B = 16,384; 8 columns at 129
+   and 18 at 65, mean), on Zipf(1.2) ids folded by each column's
+   vocabulary (``benchmark/configs``), and on one row of 20,000
+   occurrences. The outputs and the rows' gradient bit for bit (every
+   scale is 1: the same sums in the same order); the rows no real
+   occurrence reads, the rows split off to the long-segment blocks
+   (``<table>/grad_split_rows``) and the longest row's occurrences. The
+   device times of the forward and of forward and backward
+   (``median_ms``), of the plain version (the same expressions under
+   autograd, captured), and, as the yardstick the port no longer calls,
+   those expressions timed between events (``event_ms``); the bound of
+   each direction: every distinct row read and every output row written
+   once forward, with 17 bytes an occurrence of index, mask, scale and
+   sort key; every output gradient read and every row gradient written
+   once backward, with 16 bytes an occurrence of sorted key, its
+   occurrence and scale (the backward's time holds the stable
+   ``torch.sort`` of the keys). The records' launches are those of the
+   headline training path (phase 8 (b)), which combines through the
+   group's ``occ_combine``; its launch check, like those of the e2e and
+   ev_cbf paths, fails where it launched none.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1743,6 +1768,7 @@ def phase_train(kind: str, label: str, warmup: int, steps: int,
     records, launches, probe records)."""
     from deeprec_tpu_torch import bench
     from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import occ_combine as occ
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
 
     t0 = time.perf_counter()
@@ -1753,9 +1779,11 @@ def phase_train(kind: str, label: str, warmup: int, steps: int,
     sa.launches[kname] = 0
     hash_probe.launches["find_or_insert"] = 0
     init_rows.launches = 0
+    occ.launches = 0
     out = bench.bench_device(tr, warmup=warmup, steps=steps)
     launches = {"gather_rows": gather.launches,
-                kname: sa.launches[kname]}    # the main path ends here
+                kname: sa.launches[kname],
+                "occ_combine": occ.launches}  # the main path ends here
     if not build_kw.get("static_buckets"):    # static tables never probe
         launches["hash_probe_insert"] = hash_probe.launches["find_or_insert"]
         launches["init_fresh_rows"] = init_rows.launches
@@ -1942,6 +1970,7 @@ def phase_e2e(tmp: str):
     from deeprec_tpu_torch.embedding import variable as ev
     from deeprec_tpu_torch.feature_column.feature_column import batch_to
     from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import occ_combine as occ
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
 
     path = os.path.join(tmp, "criteo.tsv")
@@ -1987,11 +2016,13 @@ def phase_e2e(tmp: str):
     sa.launches["adagrad_apply_rows"] = 0
     hash_probe.launches["find_or_insert"] = 0
     init_rows.launches = 0
+    occ.launches = 0
     out = bench.bench_e2e(tr, n_rows=n_rows, path=path)
     launches = {"gather_rows": gather.launches,
                 "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
                 "hash_probe_insert": hash_probe.launches["find_or_insert"],
-                "init_fresh_rows": init_rows.launches}
+                "init_fresh_rows": init_rows.launches,
+                "occ_combine": occ.launches}
     if min(launches.values()) < 1:            # the e2e path ends here
         raise AssertionError(f"the e2e path did not launch every kernel: "
                              f"{launches}")
@@ -2227,6 +2258,7 @@ def phase_ev_cbf(tmp: str, device="cuda"):
     from deeprec_tpu_torch.embedding import lookup as lkup
     from deeprec_tpu_torch.embedding import variable as ev
     from deeprec_tpu_torch.ops.kernels import gather, hash_probe, init_rows
+    from deeprec_tpu_torch.ops.kernels import occ_combine as occ
     from deeprec_tpu_torch.ops.kernels import sparse_apply as sa
     from deeprec_tpu_torch.optimizers import sparse as sopt
     from deeprec_tpu_torch.serving.processor import ServingModel
@@ -2243,6 +2275,7 @@ def phase_ev_cbf(tmp: str, device="cuda"):
     hash_probe.launches["find_or_insert"] = 0
     hash_probe.launches["find"] = 0
     init_rows.launches = 0
+    occ.launches = 0
     t0 = time.perf_counter()
     runs = [tz.main(argv + ["--steps", "8"])]
     _release()
@@ -2251,7 +2284,8 @@ def phase_ev_cbf(tmp: str, device="cuda"):
                 "adagrad_apply_rows": sa.launches["adagrad_apply_rows"],
                 "hash_probe_insert": hash_probe.launches["find_or_insert"],
                 "hash_probe_find": hash_probe.launches["find"],
-                "init_fresh_rows": init_rows.launches}  # the main path ends
+                "init_fresh_rows": init_rows.launches,
+                "occ_combine": occ.launches}  # the main path ends
     tool_s = time.perf_counter() - t0
     _release()
     if min(launches.values()) < 1:
@@ -5363,6 +5397,128 @@ def phase_input_and_mesh_epoch(tmp: str, gather_err: float,
     return records + sharded
 
 
+def _occ_case(B, vocab, dim, seed):
+    """One table's combine at a cell's shape: rows [U + 1, dim] (U = B
+    x columns, as the lookup makes it), its inverse over Zipf(1.2) ids
+    folded by each column's ``vocab``, all real, and the columns' output
+    gradients (float32, on the card)."""
+    rng = np.random.default_rng(seed)
+    n_cols = len(vocab)
+    ids = (rng.zipf(1.2, (B, n_cols)) - 1) % np.asarray(vocab)
+    ids = ids.astype(np.int64) + (np.arange(n_cols, dtype=np.int64) << 40)
+    _, inv = np.unique(ids.reshape(-1), return_inverse=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    U = B * n_cols
+    return (torch.randn(U + 1, dim, generator=gen, device=dev),
+            torch.from_numpy(inv.reshape(B, n_cols)).to(dev),
+            torch.ones(B, n_cols, dtype=torch.bool, device=dev),
+            [torch.randn(B, dim, generator=gen, device=dev)
+             for _ in range(n_cols)])
+
+
+def compare_occ(label, rows, inv, mask, combiner, gouts) -> dict:
+    """The combine of one table (width-1 bags) by the kernels and by the
+    plain version: equal outputs and row gradients; times and bounds."""
+    from deeprec_tpu_torch.ops.kernels import occ_combine as occ
+    from deeprec_tpu_torch.utils import trace
+    B, n_cols = inv.shape
+    dim = rows.shape[1]
+    cols = [occ.Column(1, False, combiner)] * n_cols
+    none = [None] * n_cols
+
+    def fwd(fn, r, **kw):
+        return fn(r, inv, mask, cols, none, **kw)
+
+    def step(fn, **kw):
+        r = rows.detach().requires_grad_()
+        torch.autograd.grad(fwd(fn, r, **kw), [r], gouts)
+
+    def run(fn):
+        r = rows.detach().requires_grad_()
+        out = fwd(fn, r)
+        (g,) = torch.autograd.grad(out, [r], gouts)
+        return [o.detach() for o in out], g
+
+    got, want = run(occ.occ_combine), run(occ.occ_combine_reference)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+            and torch.equal(got[1], want[1])):
+        raise AssertionError(f"occ_combine {label}: differs from its plain "
+                             f"version")
+    counts = torch.bincount(inv.reshape(-1), minlength=rows.shape[0])
+    _, counters = trace.counted(lambda: step(occ.occ_combine, table="t"))
+    split = int(counters["t/grad_split_rows"])
+    if split != int((counts > occ.CHUNK).sum()):
+        raise AssertionError(f"occ_combine {label}: {split} rows split off, "
+                             f"{int((counts > occ.CHUNK).sum())} longer than "
+                             f"a chunk")
+    n, distinct = inv.numel(), int((counts > 0).sum())
+    fwd_bytes = (distinct + B * n_cols) * dim * 4 + 17 * n
+    bwd_bytes = (B * n_cols + rows.shape[0]) * dim * 4 + 16 * n
+    r0 = rows.detach()
+    ms_f = median_ms(lambda: fwd(occ.occ_combine, r0))
+    ms_s = median_ms(lambda: step(occ.occ_combine))
+    plain_f = median_ms(lambda: fwd(occ.occ_combine_reference, r0))
+    plain_s = median_ms(lambda: step(occ.occ_combine_reference))
+    lib_f = event_ms(lambda: fwd(occ.occ_combine_reference, r0))
+    lib_s = event_ms(lambda: step(occ.occ_combine_reference))
+    recs = {}
+    for d, ms, plain, lib, nbytes in (
+            ("forward", ms_f, plain_f, lib_f, fwd_bytes),
+            ("backward", ms_s - ms_f, plain_s - plain_f, lib_s - lib_f,
+             bwd_bytes)):
+        recs[d] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": bound_ms(nbytes), "max_abs_err": 0.0}
+        log(f"phase 28 occ_combine {label} {d}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, autograd event-fenced {lib:.4f} ms, bound "
+            f"{recs[d]['bound_ms']:.4f} ms ({_pct(recs[d])})")
+    log(f"phase 28 occ_combine {label}: [{rows.shape[0]}, {dim}] rows, B = "
+        f"{B}, {n_cols} columns ({combiner}), {distinct} rows read, "
+        f"{rows.shape[0] - distinct} zero; {split} split off (longest "
+        f"{int(counts.max())} occurrences); equal to the plain version")
+    return recs
+
+
+def phase_occ_combine() -> list:
+    """Phase 28: the combine and its backward at the cells' shapes."""
+    from deeprec_tpu_torch.ops.kernels import occ_combine as occ
+    cfg_dir = os.path.join(ROOT, "benchmark", "configs")
+    with open(os.path.join(cfg_dir, "dlrm_mlperf.json")) as f:
+        dlrm = json.load(f)
+    with open(os.path.join(cfg_dir, "wdl_criteo.json")) as f:
+        wdl = json.load(f)
+    by_dim = collections.defaultdict(list)
+    for b, d in zip(wdl["hash_bucket_sizes"], wdl["embedding_dims"]):
+        by_dim[d + 1].append(b)
+    cases = [("dlrm", dlrm["batch_size"], dlrm["num_embeddings_per_feature"],
+              dlrm["arch_sparse_feature_size"], "sum")]
+    cases += [(f"wdl{d}", wdl["batch_size"], by_dim[d], d, "mean")
+              for d in sorted(by_dim, reverse=True)]
+    out = []
+    for i, (label, B, vocab, dim, comb) in enumerate(cases):
+        rows, inv, mask, gouts = _occ_case(B, vocab, dim, 280 + i)
+        recs = compare_occ(label, rows, inv, mask, comb, gouts)
+        for d, rec in recs.items():
+            out.append(_record(f"occ_combine_{d}[{label}]",
+                               "deeprec_tpu_torch/csrc/occ_combine.cu",
+                               "none (XLA's gather and autodiff scatter-add)",
+                               None, 0.0, rec, "occ_combine"))
+        del rows, inv, mask, gouts
+    # One row of 20,000 occurrences among uniform others.
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    inv = torch.randint(0, 5000, (1000, 64), generator=gen, device=dev)
+    inv.view(-1)[torch.randperm(64000, generator=gen, device=dev)[:20000]] = 5
+    rows = torch.randn(5001, 128, generator=gen, device=dev)
+    mask = torch.ones(1000, 64, dtype=torch.bool, device=dev)
+    gouts = [torch.randn(1000, 128, generator=gen, device=dev)
+             for _ in range(64)]
+    compare_occ("hot row", rows, inv, mask, "sum", gouts)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -5380,6 +5536,7 @@ def main():
     phase_build()
     gather_err = phase_kernel()
     apply_err = phase_apply_kernels()
+    occ_records = phase_occ_combine()
     full_table = phase_probe()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ckpt_dir:
         parts, raw = phase_state(ckpt_dir)
@@ -5392,6 +5549,8 @@ def main():
     _release()
     tr, _, k2, k1, launches, p1, i1 = phase_train("adagrad", "8 (b)", 30,
                                                   30)
+    for r in occ_records:                     # launched by the headline path
+        r["launches"] = launches["occ_combine"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
         phase_checkpoint(tr, d)
     del tr
@@ -5462,7 +5621,7 @@ def main():
         + _path_records("sharded", sh_launches, sh["fetch"], sh["applies"],
                         gather_err, apply_err, probes=sh["probes"],
                         draws=sh["draws"])
-        + variant_records + tier_records + input_records)
+        + variant_records + tier_records + input_records + occ_records)
     log(f"P1 on the full 65-wide table (phase 15): kernel "
         f"{full_table['ms']:.4f} ms (fast round {full_table['fast_ms']:.4f},"
         f" straggler kernel {full_table['straggler_ms']:.4f}), plain "

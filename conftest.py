@@ -92,6 +92,7 @@ FILE_SECONDS = {
     "tests/test_torch_low_precision.py": 4.6,
     "tests/test_torch_keys.py": 3.7,
     "tests/test_torch_trace.py": 12.5,
+    "tests/test_torch_occ_combine.py": 6.6,
     "tests/test_torch_init_rows.py": 2.2,
     "tests/test_kafka_group.py": 2.1,
     "tests/test_torch_gather.py": 1.8,

@@ -55,6 +55,7 @@ from deeprec_tpu_torch.embedding import dyn_dim as ddlib
 from deeprec_tpu_torch.embedding import lookup as lkup
 from deeprec_tpu_torch.embedding import sharded
 from deeprec_tpu_torch.embedding import variable as ev
+from deeprec_tpu_torch.ops.kernels import occ_combine as occlib
 from deeprec_tpu_torch.utils import keys as keylib
 from deeprec_tpu_torch.utils import stateless_random as srand
 from deeprec_tpu_torch.utils import trace
@@ -759,20 +760,31 @@ class EmbeddingGroup:
         return out
 
     def _occurrences(self, gl: GroupLookup, rows: Dict[str, torch.Tensor],
-                     params=None):
-        """Per physical table: ``(items, occ, msk)`` with ``items`` its
-        ``(column name, ColumnLookup)`` pairs, ``occ`` the masked rows of
-        every occurrence ``[B, L_total, dim]`` (one gather per table,
-        one backward scatter-add per table) and ``msk`` its mask."""
+                     params=None, stacked: bool = False):
+        """Per physical table: ``(table, items, outputs)`` with ``items``
+        its ``(column name, ColumnLookup)`` pairs and ``outputs`` each
+        one's combined rows (``stacked``: the table's one ``[B, L_total,
+        dim]`` tensor of masked occurrence rows), from one
+        ``occ_combine`` call a table (``ops/kernels/occ_combine.py``:
+        one launch forward, a segmented sum backward)."""
         by_tbl: Dict[str, list] = {}
         for cname, cl in gl.columns.items():
             by_tbl.setdefault(cl.table_name, []).append((cname, cl))
         rows = self._local_rows(gl, rows, params)
         for tname, items in by_tbl.items():
-            r = rows[tname]
             inv = torch.cat([cl.inverse for _, cl in items], dim=1)
             msk = torch.cat([cl.mask for _, cl in items], dim=1)
-            yield tname, items, r[inv] * msk[..., None].to(r.dtype), msk
+            if stacked:
+                cols = [occlib.Column(inv.shape[1], sequence=True)]
+                weights = [None]
+            else:
+                cols = [occlib.Column(
+                    cl.inverse.shape[1],
+                    isinstance(cl.column, SequenceEmbeddingColumn),
+                    cl.column.combiner) for _, cl in items]
+                weights = [cl.weights for _, cl in items]
+            yield tname, items, occlib.occ_combine(
+                rows[tname], inv, msk, cols, weights, table=tname)
 
     def combine(self, gl: GroupLookup, rows: Dict[str, torch.Tensor],
                 params=None):
@@ -783,18 +795,11 @@ class EmbeddingGroup:
         split column's hot blocks are concatenated onto its base
         block."""
         out = {}
-        for _, items, occ, msk in self._occurrences(gl, rows, params):
-            off = 0
-            for cname, cl in items:
-                w = cl.inverse.shape[1]
-                seg = occ[:, off:off + w]
-                if isinstance(cl.column, SequenceEmbeddingColumn):
-                    out[cname] = (seg, cl.mask)
-                else:
-                    out[cname] = lkup.combine_from_occ(
-                        seg, msk[:, off:off + w], cl.column.combiner,
-                        weights=cl.weights)
-                off += w
+        for _, items, embs in self._occurrences(gl, rows, params):
+            for (cname, cl), e in zip(items, embs):
+                out[cname] = ((e, cl.mask)
+                              if isinstance(cl.column, SequenceEmbeddingColumn)
+                              else e)
         return self._merge_dyn_hot(out)
 
     def combine_tables(self, gl: GroupLookup,
@@ -815,9 +820,9 @@ class EmbeddingGroup:
                 raise ValueError(
                     f"combine_tables: column {cname!r} is not a width-1 "
                     "unweighted bag column; use combine()")
-        return {tname: (occ, [cname for cname, _ in items])
-                for tname, items, occ, _ in self._occurrences(gl, rows,
-                                                              params)}
+        return {tname: (embs[0], [cname for cname, _ in items])
+                for tname, items, embs in self._occurrences(
+                    gl, rows, params, stacked=True)}
 
     @staticmethod
     def _merge_dyn_hot(out):

@@ -35,8 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 # The kernel libraries of the port, one ``csrc/<name>.cu`` each: K1, K2
-# and K3, the hash probe P1 and the fresh-row draw P2.
-KERNELS = ("gather_rows", "sparse_apply", "hash_probe", "init_rows")
+# and K3, the hash probe P1, the fresh-row draw P2 and the embedding
+# combine with its backward (the ``occ_`` kernels).
+KERNELS = ("gather_rows", "sparse_apply", "hash_probe", "init_rows",
+           "occ_combine")
 # Flags of one kernel on top of NVCC_FLAGS. The optimizer applies and the
 # fresh-row draw keep every multiply and add separately rounded, as their
 # plain PyTorch versions do, so the two can be compared for equality.

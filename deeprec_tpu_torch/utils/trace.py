@@ -112,8 +112,10 @@ class Recorder:
             self.spans.append(Span(name, parent[0], self.call, t0,
                                    time.perf_counter_ns()))
 
-    def count(self, name: str, value, reduce: str, device) -> None:
-        table = self._open[-1][1] if self._open else None
+    def count(self, name: str, value, reduce: str, device,
+              table: Optional[str] = None) -> None:
+        if table is None and self._open:
+            table = self._open[-1][1]
         key = f"{table}/{name}" if table is not None else name
         acc = self.counters.get(key)
         if acc is None:
@@ -147,13 +149,16 @@ def span(name: str, table: Optional[str] = None):
     return recorder.span(name, table)
 
 
-def count(name: str, value, reduce: str = "sum", device=None) -> None:
+def count(name: str, value, reduce: str = "sum", device=None,
+          table: Optional[str] = None) -> None:
     """Add ``value`` (a tensor of one element or an int; an int's
     accumulator lives on ``device``, the CPU by default) into the counter
-    ``name`` while tracing is on. See the module docstring."""
+    ``name`` while tracing is on; ``table`` files it under
+    ``<table>/<name>`` outside that table's span. See the module
+    docstring."""
     if not on():
         return
-    recorder.count(name, value, reduce, device)
+    recorder.count(name, value, reduce, device, table)
 
 
 def counted(fn):
