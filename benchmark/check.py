@@ -56,14 +56,15 @@ def _held(acc: torch.Tensor, acc0: float) -> float:
 def _table_keys(rn, first, n_batches: int):
     """Per physical table of the program: its distinct keys (the
     program's own transform) over the first ``n_batches`` checked
-    batches, as (hi, lo) on the device."""
+    batches, padding left out, as (hi, lo) on the device."""
     tr = rn.tr
     by_table: Dict[str, list] = {}
-    for j, c in enumerate(tr.columns):
-        ids = first["ids"][:n_batches, :, j].reshape(-1, 1).to(rn.device)
+    for c in tr.columns:
+        ids = first["ids"][c.name][:n_batches].reshape(-1).to(rn.device)
         hi, lo = tr.group.transform_ids(c, *keylib.split(ids))
+        k = keylib.join(hi, lo)
         by_table.setdefault(tr.group.physical_table_of(c), []).append(
-            keylib.join(hi.reshape(-1), lo.reshape(-1)))
+            k[k != keylib.EMPTY_KEY])
     return {t: keylib.split(torch.unique(torch.cat(ks)))
             for t, ks in by_table.items()}
 
@@ -71,7 +72,7 @@ def _table_keys(rn, first, n_batches: int):
 def first_steps(rn, step1, steps23, first) -> Dict:
     """Train the checked steps, a call of ``step1`` (one batch) and a call
     of ``steps23`` (two), and read the program; ``first`` holds their raw
-    batches on the host."""
+    batches on the host (``Feed.next``'s ``keep``: ids by column)."""
     tr, g = rn.tr, rn.tr.group
     snap = {"first": first, "dense0": tr.dense0, "grad_sq": {}, "rows": {},
             "live": {}, "missing": 0}
@@ -126,7 +127,7 @@ def reference_readings(cell, snap: Dict, device,
                            cell.ref_mod.forward, snap["dense0"], device,
                            table_dtype)
     first = snap["first"]
-    batches = [{"ids": first["ids"][i].to(device),
+    batches = [{"ids": {c: v[i].to(device) for c, v in first["ids"].items()},
                 "ints": first["ints"][i].to(device),
                 "labels": first["labels"][i].to(device)}
                for i in range(first["labels"].shape[0])]

@@ -153,3 +153,21 @@ class ClickStream:
         """The stream's next ``n`` samples, concatenated."""
         parts = [c for _, _, c in self.chunks(n)]
         return {k: torch.cat([c[k] for c in parts]) for k in parts[0]}
+
+
+class ByColumn:
+    """A :class:`ClickStream` in the harness's per-column form: column
+    ``names[j]`` takes ``ids[:, j:j + 1]``, one id a sample."""
+
+    def __init__(self, stream: ClickStream, names: Sequence[str]):
+        if len(names) != NUM_CAT:
+            raise ValueError(f"ClickStream feeds {NUM_CAT} columns, "
+                             f"not {len(names)}")
+        self.stream = stream
+        self.widths = {n: 1 for n in names}
+
+    def chunks(self, n: int) -> Iterator[Tuple[int, int, Dict]]:
+        for s, e, c in self.stream.chunks(n):
+            ids = {name: c["ids"][:, j:j + 1]
+                   for j, name in enumerate(self.widths)}
+            yield s, e, dict(c, ids=ids)

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from benchmark import check, devtrace, roofline
-from benchmark.generator import ClickStream, sub_seed
+from benchmark.generator import ByColumn, ClickStream, sub_seed
 from benchmark.manifest import Cell
 from benchmark.reference import keys as keylib
 from deeprec_tpu_torch.embedding import hash_table as ht
@@ -126,28 +126,41 @@ def build(cell: Cell, seed: int, device, fault: Optional[str] = None
                    batch=int(cfg["batch_size"]))
 
 
+def traffic(cell: Cell, names, seed: int, device):
+    """The cell's stream (``manifest``'s contract): its configuration's
+    own ``stream``, or the Criteo draw over ``vocab(cfg)`` with
+    embedding column ``names[j]`` taking one id a sample."""
+    if hasattr(cell.cfg_mod, "stream"):
+        return cell.cfg_mod.stream(cell.cfg, cell.traffic, seed, device)
+    return ByColumn(ClickStream(cell.cfg_mod.vocab(cell.cfg), cell.traffic,
+                                seed, device), names)
+
+
 class Feed:
     """Pools of the cell's traffic, packed as the port's batches: each
-    physical table's transformed ids ``SparseIds [K, B, L]``, the label
-    and each numeric column ``[K, B]``. A pool is written chunk by chunk
-    into one of ``n_buffers`` pools allocated once, so drawing the next
-    pool while one trains allocates nothing of a pool's size."""
+    physical table's transformed ids ``SparseIds [K, B, L]`` (its
+    columns' ``L_c`` ids side by side, in column order, padding kept as
+    the EMPTY id), the label and each numeric column ``[K, B]``. A pool
+    is written chunk by chunk into one of ``n_buffers`` pools allocated
+    once, so drawing the next pool while one trains allocates nothing of
+    a pool's size."""
 
     def __init__(self, cell: Cell, tr: Trainer, seed: int, device, K: int,
                  n_buffers: int):
         self.tr, self.K = tr, K
-        self.stream = ClickStream(cell.cfg_mod.vocab(cell.cfg),
-                                  cell.traffic, seed, device)
-        g = tr.group
+        self.stream = traffic(cell, [c.name for c in tr.columns], seed,
+                              device)
+        g, L = tr.group, self.stream.widths
+        # (column, its table's pool key, first position, L_c)
         self.place, width = [], {}
         for c in tr.columns:
             key = g.PACKED_PREFIX + g.physical_table_of(c)
-            self.place.append((key, width.get(key, 0)))
-            width[key] = width.get(key, 0) + 1
+            self.place.append((c, key, width.get(key, 0), L[c.name]))
+            width[key] = width.get(key, 0) + L[c.name]
         # A first packing records the tables' column widths on the group.
-        one = keylib.split(torch.zeros(1, 1, dtype=torch.int64,
-                                       device=device))
-        g.pack_batch({c.name: SparseIds(*one) for c in tr.columns})
+        g.pack_batch({c.name: SparseIds(*keylib.split(torch.zeros(
+            1, L[c.name], dtype=torch.int64, device=device)))
+            for c in tr.columns})
         B = tr.batch
 
         def alloc():
@@ -163,9 +176,9 @@ class Feed:
         self.turn = 0
 
     def next(self, keep: int = 0):
-        """The stream's next pool, and its first ``keep`` batches raw
-        (``ids`` [keep, B, 26], ``ints`` [keep, B, 13], ``labels`` [keep,
-        B]) on the host."""
+        """The stream's next pool, and its first ``keep`` batches raw on
+        the host: ``ids`` {column: [keep, B, L_c]}, ``ints`` [keep, B,
+        n_int], ``labels`` [keep, B]."""
         pool = self.buffers[self.turn]
         self.turn = (self.turn + 1) % len(self.buffers)
         K, B = self.K, self.tr.batch
@@ -175,18 +188,27 @@ class Feed:
         kept = []
         for s, e, c in self.stream.chunks(K * B):
             if s < keep * B:
-                kept.append({k: v[:keep * B - s].cpu() for k, v in c.items()})
+                m = keep * B - s
+                kept.append((
+                    {col.name: c["ids"][col.name][:m].cpu()
+                     for col, _, _, _ in self.place},
+                    c["ints"][:m].cpu(), c["labels"][:m].cpu()))
             flat["label"][s:e] = c["labels"]
             for i, name in enumerate(self.tr.numeric):
                 flat[name][s:e] = c["ints"][:, i]
-            for j, col in enumerate(self.tr.columns):
-                key, at = self.place[j]
+            for col, key, at, n in self.place:
                 hi, lo = self.tr.group.transform_ids(
-                    col, *keylib.split(c["ids"][:, j:j + 1]))
-                flat[key].hi[s:e, at:at + 1] = hi
-                flat[key].lo[s:e, at:at + 1] = lo
-        raw = {k: torch.cat([p[k] for p in kept]).view(keep, B, -1).squeeze(2)
-               if kept else None for k in ("ids", "ints", "labels")}
+                    col, *keylib.split(c["ids"][col.name]))
+                flat[key].hi[s:e, at:at + n] = hi
+                flat[key].lo[s:e, at:at + n] = lo
+        raw = None
+        if kept:
+            ids, ints, labels = zip(*kept)
+            raw = {"ids": {col.name: torch.cat([i[col.name] for i in ids])
+                           .view(keep, B, n)
+                           for col, _, _, n in self.place},
+                   "ints": torch.cat(ints).view(keep, B, ints[0].shape[1]),
+                   "labels": torch.cat(labels).view(keep, B)}
         return pool, raw
 
 
@@ -332,12 +354,15 @@ def fresh_per_step(calls) -> List[float]:
 def lost_ids(rn: Runner, pool) -> int:
     """Ids of ``pool`` that the tables do not hold after training it:
     the ids the probe could not place (the step's ``n_overflow`` of the
-    tables; the unique budgets of these cells drop none)."""
+    tables; the unique budgets of these cells drop none). Padding is no
+    id: ``find`` gives it no slot, and it is taken off the count."""
     lost = 0
     for tname, st in rn.tr.ts.ev.items():
         s = pool[rn.tr.group.PACKED_PREFIX + tname]
         cap = rn.tr.group.tables[tname].capacity
-        slots = ht.find(st.table, s.hi.reshape(-1), s.lo.reshape(-1),
+        hi, lo = s.hi.reshape(-1), s.lo.reshape(-1)
+        lost -= int(((hi == keylib.EMPTY_HI) & (lo == keylib.EMPTY_LO)).sum())
+        slots = ht.find(st.table, hi, lo,
                         max_probes=rn.tr.group.tables[tname].max_probes)
         lost += int((slots >= cap).sum())
     return lost

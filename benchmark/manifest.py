@@ -13,6 +13,34 @@ mix. The harness finds:
 
 So a configuration, a mix, a metric or a cell is added with new files
 and a new entry, and no file that exists changes.
+
+A configuration's module ``configs/<config>.py`` defines
+``columns(cfg)`` (the port's columns, numeric and embedding),
+``towers(cfg, group, device)`` (the port's tower module and its
+``apply_fn``) and ``macs_per_sample(cfg)``, and its traffic in one of
+two ways:
+
+* ``stream(cfg, traffic, seed, device)``: an object with ``widths``
+  (``{column: L_c}``, the ids a sample of each embedding column) and
+  ``chunks(n)``, which yields the stream's next ``n`` samples drawn on
+  ``device`` from ``seed`` (the same seed gives the same samples) in
+  chunks ``(start, end, {"ids": {column: [m, L_c] int64 raw ids},
+  "ints": [m, n_int] float32, "labels": [m] float32})``, ``start`` and
+  ``end`` counted from the call's first sample. A bag or sequence with
+  fewer than ``L_c`` ids is padded with the EMPTY id (the int64
+  minimum), which is never a key;
+* or, without ``stream``, ``vocab(cfg)``: the 26 columns' id-space
+  sizes of the Criteo draw (``generator.ClickStream``), embedding column
+  ``j`` taking one id a sample.
+
+Its plain reference ``reference/<config>.py`` defines
+``forward(params, embs, numeric, cfg)`` and ``columns(cfg)``: each
+embedding column as ``(name, dim)`` (a bag of one id, its own table) or
+as a dict with ``name``, ``dim`` and optionally ``table`` (the shared
+table's name; the column's own by default), ``kind`` (``"bag"`` or
+``"sequence"``) and a bag's ``combiner`` (``"sum"``, the default, or
+``"mean"`` over its real ids). ``forward`` takes a bag as ``[B, dim]``
+and a sequence as ``(rows [B, L, dim], zero at padding; mask [B, L])``.
 """
 
 from __future__ import annotations

@@ -5,12 +5,15 @@ Written from the specification of ``deeprec_tpu_torch/utils/keys.py``,
 ``feature_column.EmbeddingGroup``, so that the reference derives for
 itself which key an id becomes and which row a new key starts from:
 
-* Columns of one width share a physical table; tables are numbered in
-  the order of their first column, from 1 (the table's salt), and the
-  members of a table, sorted by name, XOR the two int32 halves of each
-  id with the splitmix64 salt of their position (both halves forced
-  non-zero). A salted id that lands on a sentinel pair flips bit 1 of
-  its low half.
+* Columns that name one table (``shared_name``) share its rows and
+  are one member of it. Tables of one width share a physical table;
+  physical tables are numbered in the order of their first column, from
+  1 (the table's salt), and the members of a physical table, sorted by
+  table name, XOR the two int32 halves of each id with the splitmix64
+  salt of their position (both halves forced non-zero); a physical
+  table of one member leaves its ids as they are. A salted id that lands
+  on a sentinel pair flips bit 1 of its low half. The EMPTY id pads a
+  bag or a sequence and is never a key.
 * A new key's row is the truncated normal draw of its key: Box-Muller
   over two uint32 hash grids of the key (murmur3 finalizer; salts
   ``2 * table_salt + 1`` and ``+ 2``), clipped to 2 sigma, times
@@ -32,6 +35,8 @@ PHI32 = 0x9E3779B9
 EMPTY_HI = -(2 ** 31)
 EMPTY_LO = 0
 TOMB_LO = 1
+# The padding id and key: (EMPTY_HI, EMPTY_LO) joined, the int64 minimum.
+EMPTY_KEY = EMPTY_HI * (1 << 32) + EMPTY_LO
 
 
 def member_salt(i: int) -> Tuple[int, int]:
@@ -45,11 +50,39 @@ def member_salt(i: int) -> Tuple[int, int]:
     return tuple(v - (1 << 32) if v >= (1 << 31) else v for v in (hi, lo))
 
 
-def tables_of(columns: Sequence[Tuple[str, int]]) -> List[Dict]:
-    """Physical tables of ``columns`` ((name, width) in column order):
-    ``[{"dim", "salt", "members": {name: (salt_hi, salt_lo)}}]``."""
+def describe(columns: Sequence) -> List[Dict]:
+    """Each embedding column of ``reference/<config>.columns(cfg)`` as
+    ``{"name", "dim", "table", "kind", "combiner"}``: a ``(name, dim)``
+    pair is a bag of its own table (``table`` = ``name``) whose ids are
+    summed; a dict gives ``name`` and ``dim`` and may give ``table`` (a
+    shared table's name), ``kind`` (``"bag"`` or ``"sequence"``) and a
+    bag's ``combiner`` (``"sum"`` or ``"mean"`` over its real ids)."""
+    out = []
+    for c in columns:
+        d = ({"name": c[0], "dim": c[1]} if isinstance(c, (tuple, list))
+             else dict(c))
+        d.setdefault("table", d["name"])
+        d.setdefault("kind", "bag")
+        d.setdefault("combiner", "sum")
+        if d["kind"] not in ("bag", "sequence") or d["combiner"] not in (
+                "sum", "mean"):
+            raise ValueError(f"column {d['name']}: kind {d['kind']!r}, "
+                             f"combiner {d['combiner']!r}")
+        out.append(d)
+    return out
+
+
+def tables_of(columns: Sequence) -> List[Dict]:
+    """Physical tables of ``columns`` (as :func:`describe` takes them, in
+    column order): ``[{"dim", "salt", "members": {table name: (salt_hi,
+    salt_lo) or None}}]``. A member is a table name: the columns that
+    share it are one member, with one salt."""
+    dims: Dict[str, int] = {}
+    for c in describe(columns):
+        if dims.setdefault(c["table"], c["dim"]) != c["dim"]:
+            raise ValueError(f"table {c['table']}: columns of two dims")
     by_dim: Dict[int, List[str]] = {}
-    for name, dim in columns:
+    for name, dim in dims.items():
         by_dim.setdefault(dim, []).append(name)
     out = []
     for t, (dim, names) in enumerate(by_dim.items()):

@@ -4,9 +4,12 @@ It follows the first steps of a cell from the same inputs the program
 gets (the batches' raw ids, numeric features and labels, and the first
 tower weights) and from nothing the program made. Each embedding table
 is an id -> row map held as sorted int64 keys beside their rows and
-Adagrad accumulators: a step looks up the distinct keys of the batch,
-gives each new key its first row (``keys.init_rows``), gathers a row per
-occurrence, runs the configuration's towers (``reference/<config>.py``),
+Adagrad accumulators: a step looks up the distinct keys of the batch
+(padding is none), gives each new key its first row
+(``keys.init_rows``), gathers a row per occurrence (a zero row at
+padding), sums or averages each bag over its real ids and hands each
+sequence on with its mask, runs the configuration's towers
+(``reference/<config>.py``),
 takes the mean sigmoid cross-entropy, and applies dense Adagrad (optax's:
 ``t = g*g + t``, ``p -= lr * g * rsqrt(t + eps)``) and sparse Adagrad on
 the touched rows (``a = acc + g*g``, ``w -= lr * g * rsqrt(a)``, a new
@@ -44,9 +47,13 @@ def exact_float32():
 
 
 def bce(logits, labels):
-    """Sigmoid cross-entropy per example."""
+    """Sigmoid cross-entropy per example. ``max(x, 0)`` is taken with
+    ``torch.maximum``, whose gradient at a tie is one half to each side:
+    so at ``x = 0`` (a logit of dead ReLUs and a zero bias) the gradient
+    is ``sigmoid(0) - label``, as the loss's derivative is everywhere
+    (``clamp`` would give ``1 - label`` there)."""
     x = logits.to(torch.float32)
-    return (torch.clamp(x, min=0) - x * labels
+    return (torch.maximum(x, torch.zeros_like(x)) - x * labels
             + torch.log1p(torch.exp(-torch.abs(x))))
 
 
@@ -65,8 +72,9 @@ class Table:
         self.acc = torch.empty(0, self.dim, dtype=torch.float32,
                                device=device)
 
-    def key_of(self, column: str, ids: torch.Tensor) -> torch.Tensor:
-        return keylib.salted(ids, self.members[column])
+    def key_of(self, member: str, ids: torch.Tensor) -> torch.Tensor:
+        """Keys of the raw ``ids`` of a column of table ``member``."""
+        return keylib.salted(ids, self.members[member])
 
     def lookup(self, keys: torch.Tensor):
         """Indices of ``keys`` (distinct) in the table, new keys added
@@ -91,52 +99,77 @@ class Table:
 
 class Reference:
     """The reference trainer of one cell: ``forward(params, embs,
-    numeric) -> logits`` is the configuration's towers; ``columns`` the
-    (name, width) of its embedding columns in column order; ``dense0``
-    the first tower weights by name."""
+    numeric) -> logits`` is the configuration's towers; ``columns`` its
+    embedding columns in column order, in any form ``keys.describe``
+    takes; ``dense0`` the first tower weights by name."""
 
     def __init__(self, cfg: Dict, columns, forward: Callable,
                  dense0: Dict[str, torch.Tensor], device,
                  table_dtype=torch.float32):
         self.cfg = cfg
         self.forward = forward
-        self.columns = [c for c, _ in columns]
+        self.columns = keylib.describe(columns)
         sopt, dopt = cfg["sparse_optimizer"], cfg["dense_optimizer"]
         self.s_lr = sopt["learning_rate"]
         self.s_acc0 = sopt["initial_accumulator_value"]
         self.d_lr = dopt["learning_rate"]
         self.d_eps = dopt["eps"]
         self.tables: Dict[str, Table] = {}
-        self.table_of: Dict[str, Table] = {}
-        for spec in keylib.tables_of(columns):
+        holder: Dict[str, Table] = {}
+        for spec in keylib.tables_of(self.columns):
             t = Table(f"emb{spec['dim']}", spec, table_dtype, self.s_acc0,
                       device)
             self.tables[t.name] = t
-            for c in spec["members"]:
-                self.table_of[c] = t
+            for m in spec["members"]:
+                holder[m] = t
+        self.table_of = {c["name"]: holder[c["table"]] for c in self.columns}
         self.params = {k: v.detach().to(device, torch.float32).clone()
                        for k, v in dense0.items()}
         self.dense_acc = {k: torch.full_like(v, dopt[
             "initial_accumulator_value"]) for k, v in self.params.items()}
 
-    def step(self, ids, ints, labels) -> float:
-        """One training step on a batch: ``ids`` [B, 26] int64 raw ids,
-        ``ints`` [B, 13], ``labels`` [B]. Returns the loss."""
-        B = labels.shape[0]
-        occ = {}
-        uniq = {}
+    def _embed(self, ids):
+        """Each column's embedding, differentiable in each table's rows of
+        the batch's distinct keys: ``(embs, {table: (keys, indices,
+        rows)})``. Padding is no key: it reads a zero row."""
+        occ, uniq = {}, {}
         for t in self.tables.values():
-            cols = [j for j, c in enumerate(self.columns)
-                    if self.table_of[c] is t]
-            k = torch.stack([t.key_of(self.columns[j], ids[:, j])
-                             for j in cols], dim=1)
-            u, inv = torch.unique(k.reshape(-1), return_inverse=True)
+            cols = [c for c in self.columns if self.table_of[c["name"]] is t]
+            raw = torch.cat([ids[c["name"]] for c in cols], dim=1)
+            real = raw != keylib.EMPTY_KEY
+            k = torch.cat([t.key_of(c["table"], ids[c["name"]])
+                           for c in cols], dim=1)
+            u, inv_real = torch.unique(k[real], return_inverse=True)
+            inv = torch.zeros_like(k)
+            inv[real] = inv_real
             idx = t.lookup(u)
-            rows = t.rows[idx].to(torch.float32).requires_grad_()
-            uniq[t.name] = (u, idx, rows)
-            for jj, j in enumerate(cols):
-                occ[self.columns[j]] = (t.name, inv.view(B, -1)[:, jj])
-        embs = {c: uniq[tn][2][i] for c, (tn, i) in occ.items()}
+            uniq[t.name] = (u, idx,
+                            t.rows[idx].to(torch.float32).requires_grad_())
+            off = 0
+            for c in cols:
+                n = ids[c["name"]].shape[1]
+                occ[c["name"]] = (t.name, inv[:, off:off + n],
+                                  real[:, off:off + n])
+                off += n
+        embs = {}
+        for c in self.columns:
+            tname, inv, real = occ[c["name"]]
+            x = uniq[tname][2][inv] * real[..., None]
+            if c["kind"] == "sequence":
+                embs[c["name"]] = (x, real)
+            elif c["combiner"] == "mean":
+                embs[c["name"]] = x.sum(dim=1) / torch.clamp(
+                    real.sum(dim=1), min=1)[:, None]
+            else:
+                embs[c["name"]] = x.sum(dim=1)
+        return embs, uniq
+
+    def step(self, ids, ints, labels) -> float:
+        """One training step on a batch: ``ids`` {column: [B, L_c] int64
+        raw ids, EMPTY-padded}, ``ints`` [B, n_int], ``labels`` [B].
+        Returns the loss."""
+        B = labels.shape[0]
+        embs, uniq = self._embed(ids)
         params = {k: v.clone().requires_grad_()
                   for k, v in self.params.items()}
         with exact_float32():

@@ -39,7 +39,7 @@ def make_tiny(dst: str) -> str:
     """A copy of ``BENCHMARK.json`` and ``benchmark/`` under ``dst`` at
     tiny sizes: batches of 64, pools of 5, small vocabularies, tables and
     towers (every width of the JSON is cut, which the real cells never
-    do). Returns the copy's root."""
+    do), with the test cell ``TOY`` added. Returns the copy's root."""
     shutil.copytree(os.path.join(REPO, "benchmark"),
                     os.path.join(dst, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -55,7 +55,37 @@ def make_tiny(dst: str) -> str:
           arch_mlp_top=[32, 16, 1], batch_size=64)
     for t in ("stream", "epochs"):
         _edit(os.path.join(b, "traffic", t + ".json"), pool_batches=5)
+    add_toy(dst)
     return dst
+
+
+TOY = "toy_seq_train"
+
+
+def add_toy(root: str) -> None:
+    """Enter the test configuration ``toy_seq`` and its cell ``TOY``
+    (``benchmark/tests/toy/``: sequence, shared-table and padded-bag
+    columns over behavior traffic) into the copy at ``root``."""
+    toy = os.path.join(REPO, "benchmark", "tests", "toy")
+    for sub in os.listdir(toy):
+        for f in os.listdir(os.path.join(toy, sub)):
+            shutil.copy(os.path.join(toy, sub, f),
+                        os.path.join(root, "benchmark", sub, f))
+    path = os.path.join(root, "BENCHMARK.json")
+    with open(path) as f:
+        m = json.load(f)
+    m["configs"].append({
+        "name": "toy_seq", "source": "benchmark/tests/toy",
+        "file": "benchmark/configs/toy_seq.json", "reduced": [],
+        "why": "the harness's sequence, shared-table and padded-bag forms"})
+    m["workloads"].append({
+        "name": TOY, "config": "toy_seq", "traffic": "toy_behavior",
+        "chips": 1, "why": "a test cell: histories of 1-5 items"})
+    for e in m["per_layer"] + m["end_to_end"]:
+        if "workloads" in e:
+            e["workloads"].append(TOY)
+    with open(path, "w") as f:
+        json.dump(m, f)
 
 
 @pytest.fixture

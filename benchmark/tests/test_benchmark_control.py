@@ -11,9 +11,11 @@ import time
 import pytest
 
 from benchmark import calibrate, check, harness, manifest
-from benchmark.tests.conftest import REPO, SEED
+from benchmark.tests.conftest import REPO, SEED, TOY
 
 WORKLOADS = [w["name"] for w in manifest.manifest(REPO)["workloads"]]
+# The repository's cells and the test cell of sequence columns.
+TINY = WORKLOADS + [TOY]
 MODES = ["program", "control", "half_batch", "no_update"]
 
 
@@ -27,14 +29,14 @@ def _verdicts(cell, device):
     return {m: check.passes(n, cell.limits) for m, n in got.items()}
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", TINY)
 def test_control_and_faults_fail(tiny_root, workload):
     assert _verdicts(_cell(tiny_root, workload), "cpu") == {
         "program": True, "control": False, "half_batch": False,
         "no_update": False}
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", TINY)
 def test_broken_timed_path_is_not_correct(tiny_root, workload, monkeypatch):
     """A whole run, the look for a card skipped, with the step's loss
     taken over half of each batch."""
@@ -47,7 +49,7 @@ def test_broken_timed_path_is_not_correct(tiny_root, workload, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", TINY)
 def test_control_and_faults_fail_on_the_card(cuda_device, tiny_root,
                                              workload):
     assert _verdicts(_cell(tiny_root, workload), "cuda") == {

@@ -10,13 +10,15 @@ import time
 import pytest
 
 from benchmark import harness, manifest
-from benchmark.tests.conftest import REPO, SEED
+from benchmark.tests.conftest import REPO, SEED, TOY
 
 WORKLOADS = [w["name"] for w in manifest.manifest(REPO)["workloads"]]
+# The repository's cells and the test cell of sequence columns.
+TINY = WORKLOADS + [TOY]
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", TINY)
 def test_tiny_run_prints_contract_line(tiny_root, workload, trace, capsys):
     cell = manifest.cell(tiny_root, workload,
                          bench_dir=os.path.join(tiny_root, "benchmark"))
@@ -58,7 +60,7 @@ print(forbidden_loaded())
 
 
 def test_no_jax_after_a_run(tiny_root):
-    code = SCRIPT.format(repo=REPO, tiny=tiny_root, workloads=WORKLOADS,
+    code = SCRIPT.format(repo=REPO, tiny=tiny_root, workloads=TINY,
                          bench=os.path.join(tiny_root, "benchmark"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=tiny_root)
