@@ -99,6 +99,7 @@ FILE_SECONDS = {
     "tests/test_data_pipeline.py": 1.6,
     "tests/test_torch_parquet.py": 1.4,
     "tests/test_torch_input_pipeline.py": 1.3,
+    "tests/test_torch_din_config.py": 0.3,
     "tests/test_torch_trace_cuda.py": 0.1,
     "tests/test_torch_native_ops.py": 0.1,
     "tests/test_native.py": 0.1,

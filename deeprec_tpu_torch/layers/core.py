@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deeprec_tpu_torch.utils import trace
+
 
 def _linear(in_features: int, out_features: int, device) -> nn.Linear:
     return nn.utils.skip_init(nn.Linear, in_features, out_features,
@@ -162,7 +164,12 @@ class DINAttention(nn.Module):
     """DIN's local activation unit: a score per position from
     MLP([q, k, q-k, q*k]), masked, softmax over the sequence (or a
     masked sigmoid), then the weighted sum of the keys. ``dim`` is the
-    keys' width."""
+    keys' width.
+
+    While tracing is on (``utils/trace.py``) the forward is the span
+    ``din.attention`` and counts ``din.attention/positions`` (B x T, the
+    positions scored, padding included) and
+    ``din.attention/real_positions`` (the mask's sum)."""
 
     def __init__(self, dim: int, hidden: Sequence[int] = (80, 40),
                  dtype: torch.dtype = torch.float32,
@@ -174,16 +181,22 @@ class DINAttention(nn.Module):
 
     def forward(self, query, keys, mask):
         """query [B, D], keys [B, T, D], mask [B, T] -> [B, D]."""
-        B, T, D = keys.shape
-        q = query[:, None, :].expand(B, T, D)
-        feats = torch.cat([q, keys, q - keys, q * keys], dim=-1)
-        score = self.att_mlp(feats)[..., 0].to(torch.float32)
-        score = torch.where(mask, score, torch.finfo(torch.float32).min)
-        if self.use_softmax:
-            w = torch.softmax(score / math.sqrt(D), dim=1)
-        else:
-            w = torch.where(mask, torch.sigmoid(score), 0.0)
-        return torch.einsum("bt,btd->bd", w.to(keys.dtype), keys)
+        with trace.span("din.attention"):
+            B, T, D = keys.shape
+            if trace.on():
+                trace.count("din.attention/positions", B * T,
+                            device=mask.device)
+                trace.count("din.attention/real_positions", mask.sum())
+            q = query[:, None, :].expand(B, T, D)
+            feats = torch.cat([q, keys, q - keys, q * keys], dim=-1)
+            score = self.att_mlp(feats)[..., 0].to(torch.float32)
+            score = torch.where(mask, score,
+                                torch.finfo(torch.float32).min)
+            if self.use_softmax:
+                w = torch.softmax(score / math.sqrt(D), dim=1)
+            else:
+                w = torch.where(mask, torch.sigmoid(score), 0.0)
+            return torch.einsum("bt,btd->bd", w.to(keys.dtype), keys)
 
 
 class _HeadsIn(nn.Module):

@@ -1,9 +1,21 @@
 """DIN (Deep Interest Network), port of ``deeprec_tpu/models/din.py``.
 
+Source: DeepRec's ``modelzoo/DIN`` (``train.py``), after Zhou et al.,
+"Deep Interest Network for Click-Through Rate Prediction", KDD 2018,
+arXiv:1706.06978.
+
 The candidate's item and category embeddings attend over the user's
 behavior sequence (candidate and sequence share the item and category
 tables), then [user, candidate, attended, sequence mean, candidate *
 attended] -> MLP -> logit.
+
+Departures from the paper, as the JAX package defines the model:
+
+* the attention weights are a softmax over the real positions of the
+  scores divided by sqrt(2 * dim), where the paper keeps the scores
+  unnormalised;
+* every hidden layer takes ReLU, where the paper uses PReLU or Dice;
+* no batch normalisation.
 """
 
 from __future__ import annotations
